@@ -231,8 +231,7 @@ def test_interop_round_trip():
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()}, {"neumann": ("left",)}, {"bc": "periodic"},
-    {"order": 4}, {"smooth_dtype": torch.bfloat16},
-    {"use_fmg": True, "use_kernels": True}])
+    {"order": 4}, {"smooth_dtype": torch.bfloat16}])
 def test_unported_front_door_options_raise(kw):
     kw = dict(kw)
     cfg = tmg.MultigridConfig(finest_level=5, coarsest_level=3,
@@ -246,10 +245,32 @@ def test_unported_refinement_entries_raise():
     from tpu_multigrid_torch import precision
     _, ct = _configs(finest_level=5, coarsest_level=3)
     p = tmg.PoissonProblem(ct)
-    with pytest.raises(NotImplementedError, match="_prolong_comp_only"):
-        precision.solve_refined_ds(p.hierarchy, ct, p.rhs(), ds_levels=1)
-    with pytest.raises(NotImplementedError):
-        precision.solve_refined_ts(p.hierarchy, ct, p.rhs())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="inner_dtype"):
         precision.solve_refined_ds(p.hierarchy, ct, p.rhs(),
                                    inner_dtype=torch.bfloat16)
+
+
+def test_front_door_fmg_with_kernels_runs():
+    """use_fmg with use_kernels used to raise; both refined and plain-iterate
+    routes now start from the kernel path's FMG guess."""
+    cfg = tmg.MultigridConfig(finest_level=5, coarsest_level=3,
+                              use_kernels=True)
+    for kw in ({"tol": 1e-6, "refined": True},
+               {"tol": 1e-3, "refined": False}):
+        res = tmg.solve_poisson(5, config=cfg, use_fmg=True, **kw)
+        assert res.converged and res.u.shape == (256, 256)
+
+
+def test_refinement_entries_run_where_they_raised():
+    """cycle_ds, solve_refined_ts and solve_refined_ds(ds_levels > 0) run
+    (tests/test_torch_refine.py holds them against the JAX package)."""
+    from tpu_multigrid_torch import precision
+    _, ct = _configs(finest_level=5, coarsest_level=3)
+    p = tmg.PoissonProblem(ct)
+    e_hi, e_lo = precision.cycle_ds(p.hierarchy, ct, p.rhs(), ds_levels=1)
+    assert e_hi.shape == e_lo.shape == p.rhs().shape
+    out = precision.solve_refined_ds(p.hierarchy, ct, p.rhs(), ds_levels=1,
+                                     tol=1e-9)
+    assert out[4] is True
+    out = precision.solve_refined_ts(p.hierarchy, ct, p.rhs(), tol=1e-9)
+    assert len(out) == 6 and out[5] is True

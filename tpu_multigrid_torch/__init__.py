@@ -5,9 +5,10 @@ A port of the JAX package ``tpu_multigrid``, which stays the reference:
 modules keep its names and its ``(n, S)`` level layout, so every array
 compares elementwise.  This package imports torch and numpy and never JAX.
 Ported so far: the 2D constant-coefficient Poisson solve (V/W/F cycles,
-FMG, fixed and until-tol drivers, double-single refinement, the
-``solve_poisson`` front door), with K1, K2 and the compensated residual as
-CUDA kernels (:mod:`tpu_multigrid_torch.kernels`).
+FMG, fixed and until-tol drivers, double- and triple-single refinement
+with the double-single cycle, the ``solve_poisson`` front door), with K1,
+K2, the compensated residual, the streaming smoother and the standalone
+transfers as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`).
 """
 
 from .api import extract_solution, solve_poisson

@@ -42,8 +42,8 @@ def solve_poisson(
     ``g(x, y)``) imposes inhomogeneous Dirichlet values via lifting.
 
     Not ported yet (each raises ``NotImplementedError``): ``mesh``,
-    ``neumann``, ``bc="periodic"``, ``order=4``, a ``smooth_dtype`` other
-    than ``dtype``, and ``use_fmg`` with ``use_kernels``.
+    ``neumann``, ``bc="periodic"``, ``order=4``, and a ``smooth_dtype``
+    other than ``dtype``.
     """
     if config is None:
         config = MultigridConfig(finest_level=finest_level)
@@ -65,11 +65,6 @@ def solve_poisson(
     if config.effective_smooth_dtype != config.dtype:
         raise NotImplementedError("smooth_dtype other than dtype (the delta "
                                   "form) is not ported yet")
-    if use_fmg and config.use_kernels:
-        raise NotImplementedError(
-            "use_fmg with use_kernels=True waits for the ports of "
-            "tpu_multigrid/kernels/transfer.py::_restrict_only and "
-            "::_prolong_add_only")
     if refined is None:
         # A tol below the f32 residual floor cannot converge in the plain
         # f32 iterate: route it through compensated refinement.

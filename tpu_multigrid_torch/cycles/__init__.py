@@ -4,8 +4,11 @@ The recursion walks the hierarchy in Python.  With ``use_kernels`` a level
 visit whose level pair passes :func:`_use_super_kernels` is two kernel
 launches, K1 (smooth + residual + restrict) and K2 (prolong + correct +
 smooth, with the residual norm fused into the finest level's K2 in
-:func:`cycle_with_norm`); other levels run the plain torch operators.  Only
-the constant-coefficient 2D branch of ``tpu_multigrid.cycles`` is here.
+:func:`cycle_with_norm`).  Other kernel-sized levels run the streaming
+smoother (``kernels.stencil``) and the standalone transfers
+(``kernels.transfer.restrict_fw`` / ``prolong_add``), as the JAX package
+dispatches them; the rest run the plain torch operators.  Only the
+constant-coefficient 2D branch of ``tpu_multigrid.cycles`` is here.
 """
 
 from __future__ import annotations
@@ -20,33 +23,8 @@ from ..config import MultigridConfig
 from ..core import ops
 from ..core.grids import Hierarchy, coarse_solve
 from ..core.operators import ConstStencilOp
+from ..kernels import stencil as _k
 from ..kernels import transfer as _t
-
-# Gate of the TPU streaming-smoother kernel (tpu_multigrid/kernels/
-# stencil.py::supported): where the JAX package runs that kernel, this
-# package raises until it is ported, rather than run plain torch unasked.
-_STENCIL_TILE_C, _STENCIL_COL_HALO = 1024, 128
-
-
-def _stencil_kernel_level(S: int, dtype, steps: int) -> bool:
-    if dtype not in (torch.float32, torch.bfloat16):
-        return False
-    if not (S >= 256 and S % 128 == 0):
-        return False
-    q = 16 if dtype == torch.bfloat16 else 8
-    hr = ((max(steps, 1) + q - 1) // q) * q
-    if S - 2 * hr < q:
-        return False
-    return not (S >= _STENCIL_TILE_C + 2 * _STENCIL_COL_HALO
-                and steps > _STENCIL_COL_HALO)
-
-
-def _no_stencil_kernel(cfg: MultigridConfig, op, dtype, steps: int) -> None:
-    if (cfg.use_kernels and isinstance(op, ConstStencilOp)
-            and _stencil_kernel_level(op.S, dtype, steps)):
-        raise NotImplementedError(
-            "unfused smoothing/residual with use_kernels=True waits for the "
-            "port of tpu_multigrid/kernels/stencil.py::_streamed")
 
 
 # ---------------------------------------------------------------------------
@@ -76,24 +54,38 @@ def _smooth(op, u, b, cfg: MultigridConfig, sweeps: int):
     return (u + e.to(u.dtype)).to(u.dtype)
 
 
+def _stencil_kernel_ok(op, cfg: MultigridConfig, dtype, steps: int) -> bool:
+    return (cfg.use_kernels and isinstance(op, ConstStencilOp)
+            and _k.supported(op.S, dtype, steps))
+
+
 def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
     smoother, omega = _sm(cfg, sweeps)
-    _no_stencil_kernel(cfg, op, u.dtype,
-                       2 * sweeps if smoother == "rbgs" else sweeps)
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    if _stencil_kernel_ok(op, cfg, u.dtype, steps):
+        if smoother == "jacobi":
+            return _k.jacobi_sweeps(u, b, op.n, omega, sweeps)
+        if smoother == "rbgs":
+            return _k.rbgs_sweeps(u, b, op.n, sweeps)
     return op.smooth(u, b, smoother=smoother, omega=omega, sweeps=sweeps)
 
 
 def _residual(op, u, b, cfg: MultigridConfig):
-    _no_stencil_kernel(cfg, op, u.dtype, 1)
+    if _stencil_kernel_ok(op, cfg, u.dtype, 1):
+        return _k.residual(u, b, op.n)
     return op.residual(u, b)
 
 
 def _smooth_residual(op, u, b, cfg: MultigridConfig, sweeps: int):
-    """Pre-smooth + residual."""
-    smoother, _ = _sm(cfg, sweeps)
+    """Pre-smooth + residual, one kernel launch where the level allows."""
+    smoother, omega = _sm(cfg, sweeps)
     if sweeps > 0 and cfg.effective_smooth_dtype == u.dtype:
         steps = (2 * sweeps if smoother == "rbgs" else sweeps) + 1
-        _no_stencil_kernel(cfg, op, u.dtype, steps)
+        if _stencil_kernel_ok(op, cfg, u.dtype, steps):
+            if smoother == "jacobi":
+                return _k.jacobi_sweeps_residual(u, b, op.n, omega, sweeps)
+            if smoother == "rbgs":
+                return _k.rbgs_sweeps_residual(u, b, op.n, sweeps)
     u = _smooth(op, u, b, cfg, sweeps)
     return u, _residual(op, u, b, cfg)
 
@@ -121,9 +113,7 @@ def _restrict(r, nf: int, Sc: int, cfg: MultigridConfig):
     if cfg.restriction == "injection":
         raise NotImplementedError("restriction='injection' is not ported yet")
     if _transfer_kernels_ok(r.shape[-1], Sc, cfg, r.dtype):
-        raise NotImplementedError(
-            "standalone restriction with use_kernels=True waits for the port "
-            "of tpu_multigrid/kernels/transfer.py::_restrict_only")
+        return _t.restrict_fw(r, nf, Sc)
     return ops.restrict_fw(r, nf, Sc)
 
 
@@ -134,12 +124,10 @@ def _prolong(e, nc: int, Sf: int, cfg: MultigridConfig):
 
 
 def _prolong_add(u, e, nc: int, Sf: int, cfg: MultigridConfig):
-    """u + P e."""
+    """u + P e (masked to the fine interior on the kernel)."""
     if (cfg.prolongation == "bilinear"
             and _transfer_kernels_ok(Sf, e.shape[-1], cfg, u.dtype)):
-        raise NotImplementedError(
-            "standalone prolongation with use_kernels=True waits for the port "
-            "of tpu_multigrid/kernels/transfer.py::_prolong_add_only")
+        return _t.prolong_add(u, e, 2 * nc)
     return u + _prolong(e, nc, Sf, cfg)
 
 

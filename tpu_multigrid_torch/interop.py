@@ -61,3 +61,18 @@ def result_to_numpy(result: SolveResult) -> dict:
             "res_history": torch.as_tensor(result.res_history).cpu().numpy(),
             "iterations": int(result.iterations),
             "converged": bool(result.converged)}
+
+
+def refinement_state_to_numpy(components) -> tuple:
+    """A refinement iterate of either package, as (hi, lo) or (hi, mid, lo)
+    (torch tensors, or anything ``np.asarray`` takes), as numpy arrays in
+    the same order and dtype."""
+    return tuple(c.detach().cpu().numpy() if isinstance(c, torch.Tensor)
+                 else np.asarray(c) for c in components)
+
+
+def refinement_state_from_numpy(components, device=None) -> tuple:
+    """The (hi, lo) or (hi, mid, lo) numpy components of a refinement
+    iterate as tensors on ``device``, e.g. to resume the port's
+    ``precision.solve_refined_ds(u0=hi, u0_lo=lo)`` from a JAX iterate."""
+    return tuple(tensor_from_numpy(c, device) for c in components)

@@ -5,15 +5,17 @@ launches the kernel on CUDA tensors.  Nothing is built when this package is
 imported: ``_build.lib()`` compiles ``csrc/*.cu`` at the first launch.
 """
 
-from . import compres, transfer
+from . import compres, stencil, transfer
+
+_MODULES = (transfer, stencil, compres)
 
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper entry since the last reset."""
-    return {**transfer.LAUNCHES, **compres.LAUNCHES}
+    return {name: count for m in _MODULES for name, count in m.LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (transfer.LAUNCHES, compres.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    for m in _MODULES:
+        for name in m.LAUNCHES:
+            m.LAUNCHES[name] = 0

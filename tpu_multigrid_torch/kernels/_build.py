@@ -1,7 +1,8 @@
 """Build the CUDA kernels under ``csrc/`` and bind them with ctypes.
 
 At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
+(``sm_90a``), one compiler per source, all in parallel, and linked into one
+shared library with a plain C interface, under
 ``build/kernels-<hash>/`` at the root of the checkout, keyed by a hash of
 the sources and flags so that an edited source builds anew.  The library is
 loaded with ``ctypes``; every C entry launches on the stream it is given and
@@ -25,13 +26,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 # -fmad=false: no multiply-add contraction anywhere, so the kernels round
 # exactly as their plain torch versions do.  No fast-math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "tmt_transfer_tile": ([], _I),
     "tmt_transfer_max_steps": ([], _I),
+    "tmt_stencil_max_steps": ([], _I),
     "tmt_error_string": ([_I], ctypes.c_char_p),
     # u, b, u_out, rc, S, Sc, n, steps, rbgs, weights, count, stream
     "tmt_smooth_restrict": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
@@ -40,6 +42,15 @@ _SIGNATURES = {
     # count, stream
     "tmt_prolong_smooth": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             _I, _P], _I),
+    # r, rc, S, Sc, n, stream
+    "tmt_restrict_fw": ([_P, _P, _I, _I, _I, _P], _I),
+    # u, ec, out, S, Sc, n, stream
+    "tmt_prolong_add": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    # ec, hi, err, S, Sc, n, stream
+    "tmt_prolong_comp": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    # u, b, u_out, r_out, S, n, steps, first_step, rbgs, weights, count,
+    # stream
+    "tmt_streamed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P], _I),
     # b, u_hi, u_lo, r, S, n, stream
     "tmt_ds_residual": ([_P, _P, _P, _P, _I, _I, _P], _I),
     # b, u_hi, u_mid, u_lo, r, S, n, stream
@@ -70,33 +81,58 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds, log) -> None:
+    """Run the commands side by side; append each one's output to ``log``
+    and raise on the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed with exit code {proc.returncode}:\n"
+                      f"{err[-4000:]}")
+    if failed is not None:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
     """Compile the sources unless this hash is built already; returns the
-    library's path.  The compiler's output (``-Xptxas=-v``: registers and
-    shared memory per kernel) is kept in ``build.log`` beside it."""
+    library's path.  Each ``.cu`` compiles in an ``nvcc`` of its own, all
+    started together, and one more links them.  The compiler's output
+    (``-Xptxas=-v``: registers and shared memory per kernel) is kept in
+    ``build.log`` beside the library."""
     out_dir = build_dir()
     lib_path = out_dir / "libtmt_kernels.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libtmt_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    srcs = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
+    tmp = out_dir / f"libtmt_kernels.{tag}.so"
+    log = []
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(srcs, objs)], log)
+        _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *map(str, objs)]], log)
+    finally:
+        (out_dir / "build.log").write_text("".join(log))
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib_path)   # atomic: concurrent builders never see half
     return lib_path
 
 
 def lib() -> ctypes.CDLL:
     """The bound kernel library, built at first use.  Its constants are read
-    once, at binding: ``transfer_tile`` (K1/K2's fine tile edge) and
-    ``transfer_max_steps`` (the most steps whose window fits in shared
-    memory)."""
+    once, at binding: ``transfer_tile`` (K1/K2's fine tile edge),
+    ``transfer_max_steps`` (the most steps whose K1 window fits in shared
+    memory) and ``stencil_max_steps`` (the most steps of one streaming-
+    smoother launch)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -109,6 +145,7 @@ def lib() -> ctypes.CDLL:
                 fn.restype = restype
             handle.transfer_tile = handle.tmt_transfer_tile()
             handle.transfer_max_steps = handle.tmt_transfer_max_steps()
+            handle.stencil_max_steps = handle.tmt_stencil_max_steps()
             _lib = handle
     return _lib
 

@@ -28,17 +28,12 @@
 
 #include <cuda_runtime.h>
 
+#include "twosum.cuh"
+
 namespace {
 
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
-
-__device__ __forceinline__ void two_sum(float a, float b, float& s,
-                                        float& e) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-}
 
 // Neighbour sum with Neumaier compensation, terms in the plain version's
 // order (i-1, i+1, j-1, j+1): s + c is the exact sum.

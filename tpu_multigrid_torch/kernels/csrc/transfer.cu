@@ -1,8 +1,19 @@
 // K1 (smooth_restrict) and K2 (prolong_smooth, prolong_smooth_resnorm):
-// the two kernels of a multigrid level visit, for Hopper (sm_90a).
+// the two kernels of a multigrid level visit, for Hopper (sm_90a); and the
+// three standalone transfers restrict_fw, prolong_add and prolong_comp.
 //
 // Replaces the Pallas TPU kernels tpu_multigrid/kernels/transfer.py::
-// _smooth_restrict (K1) and ::_prolong_smooth (K2).
+// _smooth_restrict (K1), ::_prolong_smooth (K2), ::_restrict_only,
+// ::_prolong_add_only and ::_prolong_comp_only.
+//
+// The standalone transfers serve the levels the fused pair does not: the
+// double-single cycle (precision.cycle_ds) and FMG.  Each is one pass with
+// no reuse beyond a node's neighbours: restrict_fw reads r and writes the
+// quarter-size rc (1.25 passes of S*S*4 bytes), prolong_add reads u and the
+// quarter-size ec and writes u' (2.25), prolong_comp reads ec and writes hi
+// and err (2.25).  So each is one thread per output node, reading straight
+// from device memory; neighbouring threads share their reads through L1/L2.
+// prolong_comp's TwoSum goes through __fadd_rn/__fsub_rn (twosum.cuh).
 //
 //   K1: `steps` Jacobi (per-step weights) or red-black Gauss-Seidel steps
 //       on u, then r = b - A u, then full-weighting restriction of r to the
@@ -34,96 +45,10 @@
 // run to run.  Cells outside the array read as zero; the interior mask is
 // taken from global indices, as in the plain versions.
 
-#include <cuda_runtime.h>
+#include "twosum.cuh"
+#include "window.cuh"
 
 namespace {
-
-constexpr int kTile = 64;          // fine output tile side (even)
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kMaxWeights = 16;
-constexpr int kMaxSmemBytes = 227 * 1024;
-
-// Per-step Jacobi weights, rounded to f32 on the host exactly as the plain
-// version rounds them: c1 = 1 - w, c2 = w / 4.  Step s uses entry s % count.
-struct Weights {
-  float c1[kMaxWeights];
-  float c2[kMaxWeights];
-  int count;
-};
-
-__device__ __forceinline__ bool is_interior(int i, int j, int n) {
-  return i >= 1 && i <= n - 1 && j >= 1 && j <= n - 1;
-}
-
-// u[i-1,j] + u[i+1,j] + u[i,j-1] + u[i,j+1], in the plain version's order.
-__device__ __forceinline__ float nbr(const float* v, int k, int w) {
-  return ((v[k - w] + v[k + w]) + v[k - 1]) + v[k + 1];
-}
-
-// The (w x w) window at global origin (r0, c0); cells outside the array
-// read 0.
-__device__ void load_window(float* dst, const float* __restrict__ src,
-                            int S, int r0, int c0, int w) {
-  for (int li = threadIdx.y; li < w; li += blockDim.y) {
-    const int gi = r0 + li;
-    for (int lj = threadIdx.x; lj < w; lj += blockDim.x) {
-      const int gj = c0 + lj;
-      dst[li * w + lj] = (gi >= 0 && gi < S && gj >= 0 && gj < S)
-                             ? src[(size_t)gi * S + gj]
-                             : 0.0f;
-    }
-  }
-}
-
-// Runs the smoothing steps on the window; returns the buffer that holds the
-// result (the other one is free).  The outermost ring has no neighbours and
-// keeps its value: it is invalid after the first step, and the halo is deep
-// enough that invalid cells never reach an output.
-__device__ float* smooth_window(float* v, float* spare, const float* bw,
-                                int w, int r0, int c0, int n, int steps,
-                                int rbgs, const Weights& wt) {
-  for (int s = 0; s < steps; ++s) {
-    if (rbgs) {
-      // Half-step s updates colour s % 2 in place; same-colour nodes do not
-      // couple, so no thread reads a node another thread writes.
-      const int color = s & 1;
-      for (int li = threadIdx.y + 1; li < w - 1; li += blockDim.y) {
-        const int gi = r0 + li;
-        for (int lj = threadIdx.x + 1; lj < w - 1; lj += blockDim.x) {
-          const int gj = c0 + lj;
-          const int k = li * w + lj;
-          if (is_interior(gi, gj, n) && ((gi + gj) & 1) == color) {
-            v[k] = 0.25f * (bw[k] + nbr(v, k, w));
-          }
-        }
-      }
-    } else {
-      const float c1 = wt.c1[s % wt.count];
-      const float c2 = wt.c2[s % wt.count];
-      for (int li = threadIdx.y; li < w; li += blockDim.y) {
-        const int gi = r0 + li;
-        for (int lj = threadIdx.x; lj < w; lj += blockDim.x) {
-          const int gj = c0 + lj;
-          const int k = li * w + lj;
-          float out = v[k];
-          if (li > 0 && li < w - 1 && lj > 0 && lj < w - 1) {
-            out = is_interior(gi, gj, n)
-                      ? c1 * v[k] + c2 * (bw[k] + nbr(v, k, w))
-                      : 0.0f;
-          }
-          spare[k] = out;
-        }
-      }
-      float* t = v;
-      v = spare;
-      spare = t;
-    }
-    __syncthreads();
-  }
-  return v;
-}
 
 // The [1/2, 1, 1/2] blur along a row, at window index k.
 __device__ __forceinline__ float row_blur(const float* r, int k) {
@@ -195,7 +120,8 @@ smooth_restrict_kernel(const float* __restrict__ u,
   load_window(bw, b, S, r0, c0, w);
   __syncthreads();
 
-  float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, n, steps, rbgs, wt);
+  float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, n, steps, 0, rbgs,
+                           wt);
   float* r = (v == buf_a) ? buf_b : buf_a;
 
   for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
@@ -215,8 +141,7 @@ smooth_restrict_kernel(const float* __restrict__ u,
          lj += blockDim.x) {
       const int gj = c0 + lj;
       const int k = li * w + lj;
-      r[k] = is_interior(gi, gj, n) ? (bw[k] - 4.0f * v[k]) + nbr(v, k, w)
-                                    : 0.0f;
+      r[k] = is_interior(gi, gj, n) ? residual_at(v, bw, k, w) : 0.0f;
     }
   }
   __syncthreads();
@@ -271,7 +196,8 @@ prolong_smooth_kernel(const float* __restrict__ u,
   }
   __syncthreads();
 
-  float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, n, steps, rbgs, wt);
+  float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, n, steps, 0, rbgs,
+                           wt);
 
   float acc = 0.0f;
   for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
@@ -282,7 +208,7 @@ prolong_smooth_kernel(const float* __restrict__ u,
       const int k = (ti + halo) * w + tj + halo;
       u_out[(size_t)gi * S + gj] = v[k];
       if (partials != nullptr && is_interior(gi, gj, n)) {
-        const float rr = (bw[k] - 4.0f * v[k]) + nbr(v, k, w);
+        const float rr = residual_at(v, bw, k, w);
         acc += rr * rr;
       }
     }
@@ -308,46 +234,91 @@ sum_partials_kernel(const float* __restrict__ partials, int count,
   if (tid == 0) out[0] = total;
 }
 
-int window_bytes(int halo) {
-  const int w = kTile + 2 * halo;
-  return 3 * w * w * static_cast<int>(sizeof(float));
+// ---------------------------------------------------------------------------
+// Standalone transfers: one thread per output node, no shared memory.
+// ---------------------------------------------------------------------------
+
+// FW restriction at coarse node (I, J): blur the fine rows 2I-1..2I+1 along
+// the row, then blur those three across, as ops.restrict_fw does.  Nodes
+// outside the coarse interior 1..nc-1 (the tail past S/2 among them) get 0.
+__global__ void __launch_bounds__(kThreads)
+restrict_fw_kernel(const float* __restrict__ r, float* __restrict__ rc,
+                   int S, int Sc, int nc) {
+  const int I = blockIdx.y * blockDim.y + threadIdx.y;
+  const int J = blockIdx.x * blockDim.x + threadIdx.x;
+  if (I >= Sc || J >= Sc) return;
+  float val = 0.0f;
+  if (I >= 1 && I <= nc - 1 && J >= 1 && J <= nc - 1) {
+    const float* row = r + (size_t)(2 * I) * S;
+    const int j = 2 * J;
+    val = row_blur(row, j) + 0.5f * (row_blur(row - S, j) +
+                                     row_blur(row + S, j));
+  }
+  rc[(size_t)I * Sc + J] = val;
 }
 
-cudaError_t make_weights(const float* host, int count, Weights* wt) {
-  if (count < 1 || count > kMaxWeights) return cudaErrorInvalidValue;
-  for (int i = 0; i < count; ++i) {
-    wt->c1[i] = host[i];
-    wt->c2[i] = host[count + i];
-  }
-  for (int i = count; i < kMaxWeights; ++i) {
-    wt->c1[i] = 0.0f;
-    wt->c2[i] = 0.0f;
-  }
-  wt->count = count;
-  return cudaSuccess;
+// out = mask(u + P ec): K2's correction without the smoothing steps.
+__global__ void __launch_bounds__(kThreads)
+prolong_add_kernel(const float* __restrict__ u, const float* __restrict__ ec,
+                   float* __restrict__ out, int S, int Sc, int n) {
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S || j >= S) return;
+  const size_t k = (size_t)i * S + j;
+  const int m = min(Sc, (S + 1) / 2);
+  out[k] = is_interior(i, j, n) ? u[k] + prolong_at(ec, Sc, m, i, j) : 0.0f;
 }
 
-constexpr int kDefaultSmemBytes = 48 * 1024;
-constexpr int kMaxDevices = 64;
+// (hi, err) with hi + err == (P ec)[i, j] exactly.  The weights 1, 1/2, 1/4
+// are exponent shifts, so only the neighbour sums round, and TwoSum keeps
+// their error.  The order is the TPU kernel's (transfer.py::
+// _bilinear_prolong_comp): the odd-odd node pairs each column first,
+// (c + c_down) and (c_right + c_down_right), and its error is
+// t1 + (t2 + t3).
+__global__ void __launch_bounds__(kThreads)
+prolong_comp_kernel(const float* __restrict__ ec, float* __restrict__ hi,
+                    float* __restrict__ err, int S, int Sc, int n) {
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S || j >= S) return;
+  const size_t k = (size_t)i * S + j;
+  float h = 0.0f;
+  float e = 0.0f;
+  if (is_interior(i, j, n)) {
+    const int m = min(Sc, (S + 1) / 2);
+    const int I = i >> 1;
+    const int J = j >> 1;
+    auto c = [&](int a, int bb) {
+      return (a < m && bb < m) ? __ldg(ec + (size_t)a * Sc + bb) : 0.0f;
+    };
+    const bool odd_i = i & 1;
+    const bool odd_j = j & 1;
+    float s, t;
+    if (!odd_i && !odd_j) {
+      h = c(I, J);
+    } else if (odd_i && !odd_j) {
+      two_sum(c(I, J), c(I + 1, J), s, t);
+      h = __fmul_rn(0.5f, s);
+      e = __fmul_rn(0.5f, t);
+    } else if (!odd_i && odd_j) {
+      two_sum(c(I, J), c(I, J + 1), s, t);
+      h = __fmul_rn(0.5f, s);
+      e = __fmul_rn(0.5f, t);
+    } else {
+      float s1, t1, s2, t2, t3;
+      two_sum(c(I, J), c(I + 1, J), s1, t1);
+      two_sum(c(I, J + 1), c(I + 1, J + 1), s2, t2);
+      two_sum(s1, s2, s, t3);
+      h = __fmul_rn(0.25f, s);
+      e = __fmul_rn(0.25f, __fadd_rn(t1, __fadd_rn(t2, t3)));
+    }
+  }
+  hi[k] = h;
+  err[k] = e;
+}
 
-// Opts `kernel` in to `bytes` of dynamic shared memory on the current
-// device.  The attribute holds per device, so `configured[device]` keeps the
-// largest opt-in made there (0 until the first one); devices past
-// kMaxDevices set it at every launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int* configured) {
-  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
-  if (bytes <= kDefaultSmemBytes) return cudaSuccess;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const bool cached = device < kMaxDevices;
-  if (cached && bytes <= configured[device]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  if (cached) configured[device] = bytes;
-  return cudaSuccess;
+dim3 node_grid(int S) {
+  return dim3((S + kThreadsX - 1) / kThreadsX, (S + kThreadsY - 1) / kThreadsY);
 }
 
 }  // namespace
@@ -415,6 +386,35 @@ int tmt_prolong_smooth(const void* u, const void* b, const void* ec,
   sum_partials_kernel<<<1, dim3(kThreadsX, kThreadsY), 0, st>>>(
       static_cast<const float*>(partials), tiles * tiles,
       static_cast<float*>(out_sum));
+  return cudaGetLastError();
+}
+
+// rc (Sc x Sc) = FW(r), zero outside the coarse interior 1..n/2-1.
+int tmt_restrict_fw(const void* r, void* rc, int S, int Sc, int n,
+                    void* stream) {
+  restrict_fw_kernel<<<node_grid(Sc), dim3(kThreadsX, kThreadsY), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(r), static_cast<float*>(rc), S, Sc, n / 2);
+  return cudaGetLastError();
+}
+
+// out (S x S) = mask(u + P ec).
+int tmt_prolong_add(const void* u, const void* ec, void* out, int S, int Sc,
+                    int n, void* stream) {
+  prolong_add_kernel<<<node_grid(S), dim3(kThreadsX, kThreadsY), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(u), static_cast<const float*>(ec),
+      static_cast<float*>(out), S, Sc, n);
+  return cudaGetLastError();
+}
+
+// hi, err (S x S) with hi + err == mask(P ec) exactly.
+int tmt_prolong_comp(const void* ec, void* hi, void* err, int S, int Sc,
+                     int n, void* stream) {
+  prolong_comp_kernel<<<node_grid(S), dim3(kThreadsX, kThreadsY), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ec), static_cast<float*>(hi),
+      static_cast<float*>(err), S, Sc, n);
   return cudaGetLastError();
 }
 

@@ -1,31 +1,36 @@
-"""The two kernels of a multigrid level visit, K1 and K2.
+"""The two kernels of a multigrid level visit, K1 and K2, and the three
+standalone transfers.
 
 * K1, :func:`smooth_restrict`: pre-smoothing sweeps, the residual and its
   full-weighting restriction, in one launch (``csrc/transfer.cu``).
 * K2, :func:`prolong_smooth` / :func:`prolong_smooth_resnorm`: bilinear
   prolongation of the coarse correction, the correction add and the
   post-smoothing sweeps, optionally with ``||b - A u'||_2``.
+* :func:`restrict_fw`, :func:`prolong_add` and :func:`prolong_comp`: the
+  full-weighting restriction, ``mask(u + P ec)``, and the exact pair
+  ``hi + err == P ec``, each one launch, for the double-single cycle
+  (``precision.cycle_ds``) and FMG.
 
 They replace the Pallas TPU kernels ``tpu_multigrid/kernels/transfer.py::
-_smooth_restrict`` and ``::_prolong_smooth``.  Each entry runs its plain
-torch version (``*_plain``, the composition of ``core.ops``) on CPU tensors
-and launches its CUDA kernel on CUDA tensors; on a CUDA tensor it never
-falls back.  ``LAUNCHES`` counts kernel launches per entry.
+_smooth_restrict``, ``::_prolong_smooth``, ``::_restrict_only``,
+``::_prolong_add_only`` and ``::_prolong_comp_only``.  Each entry runs its
+plain torch version (``*_plain``, the composition of ``core.ops``) on CPU
+tensors and launches its CUDA kernel on CUDA tensors; on a CUDA tensor it
+never falls back.  ``LAUNCHES`` counts kernel launches per entry.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from ..core import ops
 from ..core.operators import ConstStencilOp
 from . import _build
+from .stencil import step_weights
 
 LAUNCHES = {"smooth_restrict": 0, "prolong_smooth": 0,
-            "prolong_smooth_resnorm": 0}
+            "prolong_smooth_resnorm": 0, "restrict_fw": 0, "prolong_add": 0,
+            "prolong_comp": 0}
 
 
 def supported(Sf: int, Sc: int, steps: int, dtype) -> bool:
@@ -92,15 +97,6 @@ def _check_options(entry, u, smoother, smooth_dtype, stencil):
         raise ValueError(f"unknown smoother {smoother!r}")
 
 
-@functools.lru_cache(maxsize=None)
-def _weights(ws: tuple):
-    """Host weight array [c1..., c2...] for per-step weights ``ws``, rounded
-    to float32 as torch rounds a Python scalar in the plain version.  Cached:
-    the C entries only read it."""
-    return np.array([1.0 - w for w in ws] + [0.25 * w for w in ws],
-                    np.float32)
-
-
 def _launch_args(entry, lib, smoother, omega, sweeps):
     """(steps, rbgs flag, host weight array) for a C entry."""
     steps = 2 * sweeps if smoother == "rbgs" else sweeps
@@ -110,7 +106,7 @@ def _launch_args(entry, lib, smoother, omega, sweeps):
     if steps > lib.transfer_max_steps:
         raise ValueError(f"{entry}: {steps} steps do not fit in shared "
                          "memory")
-    return steps, int(smoother == "rbgs"), _weights(ws)
+    return steps, int(smoother == "rbgs"), step_weights(ws)
 
 
 def smooth_restrict(u, b, n: int, Sc: int, sweeps: int,
@@ -187,3 +183,108 @@ def prolong_smooth_resnorm(u, b, ec, n: int, sweeps: int,
     u_out, ss = _prolong_smooth_cuda("prolong_smooth_resnorm", u, b, ec, n,
                                      sweeps, smoother, omega, resnorm=True)
     return u_out, torch.sqrt(ss)
+
+
+# ---------------------------------------------------------------------------
+# Standalone transfers
+# ---------------------------------------------------------------------------
+
+def restrict_fw_plain(r, n: int, Sc: int):
+    return ops.restrict_fw(r, n, Sc)
+
+
+def prolong_add_plain(u, ec, n: int):
+    return _corrected(u, ec, n)
+
+
+def _interleave(ee, oe, eo, oo, Sf: int):
+    """Four (m, m) phase arrays -> the (Sf, Sf) fine grid with
+    out[2i + a, 2j + b] = phase[a][b], cropped or zero-padded."""
+    m = ee.shape[-1]
+    f = ee.new_zeros((2 * m, 2 * m))
+    f[0::2, 0::2] = ee
+    f[1::2, 0::2] = oe
+    f[0::2, 1::2] = eo
+    f[1::2, 1::2] = oo
+    return ops._crop_pad_square(f, Sf)
+
+
+def prolong_comp_plain(ec, n: int, Sf: int):
+    """``prolong_comp``'s plain version: (hi, err), masked to the fine
+    interior, with hi + err == P ec exactly.  The neighbour sums are taken
+    in the TPU kernel's order (``_bilinear_prolong_comp``): the odd-odd node
+    pairs each column first, and its error is t1 + (t2 + t3).
+    ``precision.prolong_comp`` keeps the JAX jnp route's order."""
+    from ..precision import _two_sum
+    m = min(ec.shape[-1], (Sf + 1) // 2)
+    ep = ec.new_zeros((m + 1, m + 1))   # coarse nodes past m read 0
+    ep[:m, :m] = ec[:m, :m]
+    c, cdn, crt, cdr = ep[:m, :m], ep[1:, :m], ep[:m, 1:], ep[1:, 1:]
+    s1, t1 = _two_sum(c, cdn)
+    s, t = _two_sum(c, crt)
+    s2, t2 = _two_sum(crt, cdr)
+    s4, t3 = _two_sum(s1, s2)
+    hi = _interleave(c, 0.5 * s1, 0.5 * s, 0.25 * s4, Sf)
+    err = _interleave(torch.zeros_like(c), 0.5 * t1, 0.5 * t,
+                      0.25 * (t1 + (t2 + t3)), Sf)
+    return ops.mask_interior(hi, n), ops.mask_interior(err, n)
+
+
+def _check_transfer(entry, x, box) -> None:
+    """The options of the TPU transfer kernels that are not ported yet
+    raise, on either device."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"{entry}: float32 only, got {x.dtype}")
+    if box is not None:
+        raise NotImplementedError(f"{entry}: box masks (mixed boundary "
+                                  "conditions) are not ported yet")
+
+
+def _launch_transfer(entry, inputs, shapes, outputs, S, Sc, n):
+    _build.check_inputs(entry, inputs, shapes)
+    with torch.cuda.device(inputs[0].device):
+        err = getattr(_build.lib(), f"tmt_{entry}")(
+            *(t.data_ptr() for t in inputs + outputs), S, Sc, n,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, entry)
+    LAUNCHES[entry] += 1
+
+
+def restrict_fw(r, n: int, Sc: int, cbox=None):
+    """Full-weighting restriction of the fine (S, S) ``r`` with ``n`` cells
+    to (Sc, Sc), zero outside the coarse interior (and so past S/2)."""
+    _check_transfer("restrict_fw", r, cbox)
+    if r.device.type == "cpu":
+        return restrict_fw_plain(r, n, Sc)
+    S = r.shape[-1]
+    if not 0 < n < S:
+        raise ValueError(f"restrict_fw: n={n} does not fit in S={S}")
+    rc = torch.empty((Sc, Sc), dtype=r.dtype, device=r.device)
+    _launch_transfer("restrict_fw", (r,), ((S, S),), (rc,), S, Sc, n)
+    return rc
+
+
+def prolong_add(u, ec, n: int, box=None):
+    """mask(u + P ec): the coarse (Sc, Sc) correction ``ec`` prolonged onto
+    the fine (S, S) grid with ``n`` cells and added to ``u``."""
+    _check_transfer("prolong_add", u, box)
+    if u.device.type == "cpu":
+        return prolong_add_plain(u, ec, n)
+    S, Sc = u.shape[-1], ec.shape[-1]
+    out = torch.empty_like(u)
+    _launch_transfer("prolong_add", (u, ec), ((S, S), (Sc, Sc)), (out,),
+                     S, Sc, n)
+    return out
+
+
+def prolong_comp(ec, n: int, Sf: int):
+    """(hi, err), each (Sf, Sf), with hi + err == P ec exactly."""
+    _check_transfer("prolong_comp", ec, None)
+    if ec.device.type == "cpu":
+        return prolong_comp_plain(ec, n, Sf)
+    Sc = ec.shape[-1]
+    hi = torch.empty((Sf, Sf), dtype=ec.dtype, device=ec.device)
+    err = torch.empty_like(hi)
+    _launch_transfer("prolong_comp", (ec,), ((Sc, Sc),), (hi, err), Sf, Sc,
+                     n)
+    return hi, err

@@ -14,9 +14,11 @@ deeper residuals out of f32 storage:
 * the outer loop is iterative refinement with one multigrid cycle as the
   inner solver: e = MG(r); u += e (compensated accumulation).
 
-Ported here: the ds/ts residuals and ``solve_refined_ds`` with
-``ds_levels=0`` and no ``inner_dtype``.  ``cycle_ds`` and
-``solve_refined_ts`` wait for kernels that are not ported yet.
+For the deepest tolerances at 16385^2 the iterate is a triple-single
+u_hi + u_mid + u_lo (:func:`solve_refined_ts`), and the inner cycle keeps
+its corrections double-single on the finest levels (:func:`cycle_ds`).
+Ported here: the 2D branch of all of it.  ``inner_dtype`` (a narrow inner
+cycle) is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ import torch
 from .config import MultigridConfig
 from .core import ops
 from .core.grids import Hierarchy
-from .cycles import SolveResult, cycle
+from .cycles import (SolveResult, _coarsest_solve, _restrict, _smooth,
+                     _smooth_residual, cycle)
+from .kernels import compres
+from .kernels import transfer as _t
 
 
 def _two_sum(a, b):
@@ -118,31 +123,177 @@ def ts_residual(b, u_hi, u_mid, u_lo, n: int):
 
 def _ds_residual_d(b, u_hi, u_lo, n, use_kernels):
     """ds_residual, through the kernel when the grid qualifies."""
-    from .kernels import compres
     if use_kernels and compres.supported(b.shape[-1], b.dtype):
         return compres.ds_residual(b, u_hi, u_lo, n)
     return ds_residual(b, u_hi, u_lo, n)
 
 
 def _ts_residual_d(b, u_hi, u_mid, u_lo, n, use_kernels):
-    from .kernels import compres
     if use_kernels and compres.supported(b.shape[-1], b.dtype):
         return compres.ts_residual(b, u_hi, u_mid, u_lo, n)
     return ts_residual(b, u_hi, u_mid, u_lo, n)
 
 
-_CYCLE_DS_WAITS = (
-    "cycle_ds, which waits for the ports of tpu_multigrid/kernels/"
-    "transfer.py::_prolong_comp_only, ::_restrict_only, ::_prolong_add_only "
-    "and kernels/stencil.py::_streamed")
+def prolong_comp(ec, nc: int, Sf: int):
+    """Bilinear prolongation with an exact error term: P ec == hi + err.
+
+    All P weights are dyadic (1, 1/2, 1/4), so the only rounding happens in
+    the 2- and 4-point neighbour sums, which TwoSum captures as ``err``.
+    The odd-odd sum pairs each row first, as the JAX package's jnp route
+    does (the kernel, ``kernels.transfer.prolong_comp``, pairs each column
+    first, as the TPU kernel does).
+    """
+    Sc = ec.shape[-1]
+    m = min(Sc, (Sf + 1) // 2)
+    e = ec[:m, :m]
+    hi = ec.new_zeros((Sf, Sf))
+    err = ec.new_zeros((Sf, Sf))
+    lim = 2 * m - 1
+    hi[0:lim:2, 0:lim:2] = e
+    s, t = _two_sum(e[:-1, :], e[1:, :])
+    hi[1:lim - 1:2, 0:lim:2] = 0.5 * s
+    err[1:lim - 1:2, 0:lim:2] = 0.5 * t
+    s, t = _two_sum(e[:, :-1], e[:, 1:])
+    hi[0:lim:2, 1:lim - 1:2] = 0.5 * s
+    err[0:lim:2, 1:lim - 1:2] = 0.5 * t
+    s1, t1 = _two_sum(e[:-1, :-1], e[:-1, 1:])
+    s2, t2 = _two_sum(e[1:, :-1], e[1:, 1:])
+    s, t3 = _two_sum(s1, s2)
+    hi[1:lim - 1:2, 1:lim - 1:2] = 0.25 * s
+    err[1:lim - 1:2, 1:lim - 1:2] = 0.25 * (t1 + t2 + t3)
+    return ops.mask_interior(hi, 2 * nc), ops.mask_interior(err, 2 * nc)
 
 
-def cycle_ds(*args, **kwargs):
-    raise NotImplementedError(f"not ported yet: {_CYCLE_DS_WAITS}")
+def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
+             ds_levels: int = 3):
+    """One V-cycle on the defect equation A e = r, returning e as a
+    double-single pair (e_hi, e_lo).
+
+    On the finest ``ds_levels`` levels: pre-smoothing and the restricted
+    defect stay plain f32; the sub-level correction comes back as a ds
+    pair, is prolonged with an exact error term and accumulates by TwoSum;
+    post-smoothing runs in delta form against the compensated defect of
+    the accumulated pair.  Below them the plain cycle runs.  Only the
+    V-cycle shape, as in the JAX package.
+    """
+    if r.ndim != 2:
+        raise NotImplementedError("cycle_ds: the 3D branch is not ported yet")
+    op = hier.levels[k]
+    if k >= ds_levels or k == hier.num_levels - 1:
+        if k == hier.num_levels - 1:
+            e = _coarsest_solve(hier, cfg, torch.zeros_like(r), r)
+        else:
+            e = cycle(hier, cfg, torch.zeros_like(r), r, k=k)
+        return e, torch.zeros_like(e)
+
+    opc = hier.levels[k + 1]
+    e0, r1 = _smooth_residual(op, torch.zeros_like(r), r, cfg, cfg.nu1)
+    rc = _restrict(r1, op.n, opc.S, cfg)
+    ec_hi, ec_lo = cycle_ds(hier, cfg, rc, k + 1, ds_levels)
+    if cfg.use_kernels and _t.supported(op.S, opc.S, 0, r.dtype):
+        p_hi, p_err = _t.prolong_comp(ec_hi, op.n, op.S)
+        p_lo = _t.prolong_add(p_err, ec_lo, op.n)
+    else:
+        p_hi, p_err = prolong_comp(ec_hi, opc.n, op.S)
+        p_lo = ops.prolong(ec_lo, opc.n, op.S) + p_err
+    # accumulate (p_hi, p_lo) + e0 exactly, then post-smooth in delta form
+    e_hi, e_lo = ds_add(p_hi, p_lo, e0)
+    d0 = _ds_residual_d(r, e_hi, e_lo, op.n, cfg.use_kernels)
+    delta = _smooth(op, torch.zeros_like(d0), d0, cfg, cfg.nu2)
+    return ds_add(e_hi, e_lo, delta)
 
 
-def solve_refined_ts(*args, **kwargs):
-    raise NotImplementedError(f"solve_refined_ts runs {_CYCLE_DS_WAITS}")
+def _ts_renorm(a, b, c):
+    """Renormalize three roughly-ordered components to a ts triple."""
+    s, t = _two_sum(b, c)
+    hi, t2 = _two_sum(a, s)
+    mid, lo = _quick_two_sum(t2, t)
+    return hi, mid, lo
+
+
+def ts_add(hi, mid, lo, y):
+    """(hi + mid + lo) + y in triple-single form (y a plain f32 array)."""
+    s1, e1 = _two_sum(hi, y)
+    s2, e2 = _two_sum(mid, e1)
+    s3 = lo + e2
+    return _ts_renorm(s1, s2, s3)
+
+
+class _RefinementLoop:
+    """The until-tol / fixed-count loop of the refinement drivers, with its
+    decisions taken in float32 as the JAX drivers take them: continue while
+    ``rnorm > target`` and the last iteration reduced the residual below
+    ``stall_factor`` times the one before (fixed mode: exactly
+    ``num_cycles`` iterations)."""
+
+    def __init__(self, r0, tol, stall_factor, num_cycles, max_iters,
+                 r0_norm=None):
+        self.fixed = num_cycles is not None
+        self.ncyc = num_cycles if self.fixed else max_iters
+        r0 = np.float32(r0)
+        rbase = np.float32(r0_norm) if r0_norm is not None else r0
+        self.target = (np.float32(tol) * rbase if tol is not None
+                       else np.float32(0.0))
+        self.sf = np.float32(stall_factor)
+        self.hist = np.full((self.ncyc + 1,), np.nan, np.float32)
+        self.hist[0] = r0
+        self.i, self.rnorm, self.prev = 0, r0, np.float32(np.inf)
+
+    def running(self) -> bool:
+        return self.i < self.ncyc and (
+            self.fixed or (self.rnorm > self.target
+                           and self.rnorm < self.sf * self.prev))
+
+    def record(self, rnorm) -> None:
+        self.prev, self.rnorm = self.rnorm, np.float32(rnorm)
+        self.hist[self.i + 1] = self.rnorm
+        self.i += 1
+
+    def outcome(self):
+        """(history as a float32 CPU tensor, iterations, converged)."""
+        conv = True if self.fixed else bool(self.rnorm <= self.target)
+        return torch.from_numpy(self.hist), self.i, conv
+
+
+def _check_modes(tol, num_cycles) -> None:
+    if tol is None and num_cycles is None:
+        raise ValueError(
+            "refined solve needs either tol (until-tol mode) or "
+            "num_cycles (fixed-count mode); got tol=None, num_cycles=None")
+
+
+def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
+                     tol: Optional[float] = 1e-8, max_iters: int = 60,
+                     stall_factor: float = 0.9,
+                     num_cycles: Optional[int] = None,
+                     ds_levels: int = 3):
+    """Triple-single refinement: (u_hi, u_mid, u_lo, hist, iters, ok).
+
+    The outer iterate is a ts triple (representation floor ~eps^3); the
+    inner correction cycle runs with double-single corrections on the
+    finest ``ds_levels`` levels (:func:`cycle_ds`), or is the plain cycle
+    with ``ds_levels=0``.  ``hist`` is a float32 CPU tensor of residual
+    norms, NaN-padded; stop rules as :func:`solve_refined_ds`.
+    """
+    _check_modes(tol, num_cycles)
+    op = hier.levels[0]
+    u_hi = b.new_zeros((op.S, op.S))
+    u_mid = torch.zeros_like(u_hi)
+    u_lo = torch.zeros_like(u_hi)
+    r = b
+    loop = _RefinementLoop(ops.norm2(r).item(), tol, stall_factor,
+                           num_cycles, max_iters)
+    while loop.running():
+        if ds_levels > 0:
+            e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
+            u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_hi)
+            u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_lo)
+        else:
+            e = cycle(hier, cfg, torch.zeros_like(r), r)
+            u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e)
+        r = _ts_residual_d(b, u_hi, u_mid, u_lo, op.n, cfg.use_kernels)
+        loop.record(ops.norm2(r).item())
+    return (u_hi, u_mid, u_lo) + loop.outcome()
 
 
 def solve_refined(hier: Hierarchy, cfg: MultigridConfig, b, *,
@@ -174,21 +325,17 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
 
     Until-tol mode stops at the target or after the FIRST iteration that
     does not reduce the residual by ``stall_factor``.  ``hist`` is a
-    float32 CPU tensor of residual norms, NaN-padded.
+    float32 CPU tensor of residual norms, NaN-padded.  ``ds_levels > 0``
+    runs the inner cycle with double-single corrections on that many
+    finest levels (:func:`cycle_ds`).
     """
-    if ds_levels > 0:
-        raise NotImplementedError(f"ds_levels > 0 runs {_CYCLE_DS_WAITS}")
+    if inner_dtype is not None and ds_levels > 0:
+        raise ValueError("inner_dtype and ds_levels are mutually exclusive")
     if inner_dtype is not None:
         raise NotImplementedError("inner_dtype (a narrow inner cycle) is not "
                                   "ported yet")
-    if tol is None and num_cycles is None:
-        raise ValueError(
-            "refined solve needs either tol (until-tol mode) or "
-            "num_cycles (fixed-count mode); got tol=None, num_cycles=None")
+    _check_modes(tol, num_cycles)
     op = hier.levels[0]
-    fixed = num_cycles is not None
-    ncyc = num_cycles if fixed else max_iters
-
     if u0 is not None:
         u_hi = u0.to(b.dtype)
         u_lo = (u0_lo.to(b.dtype) if u0_lo is not None
@@ -198,19 +345,16 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
         u_hi = b.new_zeros((op.S, op.S))
         u_lo = torch.zeros_like(u_hi)
         r = b
-    r0 = np.float32(ops.norm2(r).item())
-    rbase = np.float32(r0_norm) if r0_norm is not None else r0
-    target = np.float32(tol) * rbase if tol is not None else np.float32(0.0)
-    sf = np.float32(stall_factor)
-    hist = np.full((ncyc + 1,), np.nan, np.float32)
-    hist[0] = r0
-    i, rnorm, prev = 0, r0, np.float32(np.inf)
-    while i < ncyc and (fixed or (rnorm > target and rnorm < sf * prev)):
-        e = cycle(hier, cfg, torch.zeros_like(r), r)
-        u_hi, u_lo = ds_add(u_hi, u_lo, e)
+    loop = _RefinementLoop(ops.norm2(r).item(), tol, stall_factor,
+                           num_cycles, max_iters, r0_norm)
+    while loop.running():
+        if ds_levels > 0:
+            e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
+            u_hi, u_lo = ds_add(u_hi, u_lo, e_hi)
+            u_hi, u_lo = ds_add(u_hi, u_lo, e_lo)
+        else:
+            e = cycle(hier, cfg, torch.zeros_like(r), r)
+            u_hi, u_lo = ds_add(u_hi, u_lo, e)
         r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
-        prev, rnorm = rnorm, np.float32(ops.norm2(r).item())
-        hist[i + 1] = rnorm
-        i += 1
-    conv = True if fixed else bool(rnorm <= target)
-    return u_hi, u_lo, torch.from_numpy(hist), i, conv
+        loop.record(ops.norm2(r).item())
+    return (u_hi, u_lo) + loop.outcome()
