@@ -30,15 +30,29 @@ Phases, each printing its own lines:
 4d. Deep smoothing: RB-GS (10, 10) at level 12, 3 cycles, where the
    finest levels are too deep for K1/K2 and run the streaming smoother
    (split into launches), the residual and the standalone transfers.
-5. Times: ms per V-cycle and DOF/s at 8193^2 on both paths, one ts
-   iteration at 16385^2 on both paths, and each kernel beside its plain
-   version (K1/K2/ds/ts at S = 8448, the others at 16640), with CUDA events
-   (median of 7 after warm-up).
+4e. The variable-coefficient slice at BASELINE config 4's size, 4097^2,
+   levels 12 -> 5, RB-GS (1, 1), coefficient 1 + 10 exp(-20 |x - (0.4,
+   0.6)|^2) (benchmarks/bench_var.py): the var kernels against their plain
+   versions at the finest pair (S = 4352, Sc = 2304) on the flux operator,
+   on the Galerkin level-11 operator and on a 9-plane nonsymmetric operator
+   from a seed, bitwise (K2v-resnorm's norm to 1e-4); solve_diffusion(12,
+   tol=1e-5) on the kernels with exact launch counts, and the same solve on
+   the plain path over the same hierarchy; 10 fixed cycles from a seeded
+   random right-hand side on both paths; solve_helmholtz(12); the unfused
+   var level visit (injection restriction) and the var smoother on a
+   smoothed coarsest level, each with exact launch counts; level 6 against
+   a dense float64 solve of the same flux system.
+5. Times: ms per V-cycle and DOF/s at 8193^2 and at 4097^2 (var) on both
+   paths, one ts iteration at 16385^2 on both paths, and each kernel beside
+   its plain version (K1/K2/ds/ts at S = 8448, the var kernels at 4352, the
+   others at 16640), with CUDA events (median of 7 after warm-up), and the
+   one PyTorch call that computes the same function where there is one.
 
 Every path of phase 4 is driven with all launch counts set to 0 just
 before it and read just after.  Then one JSON line of kernel records, with
-each entry's launches summed over those path runs, and, last, the device
-JSON line.
+each entry's launches summed over those path runs and its bound (the bytes
+it must move over 3.35 TB/s or its float32 operations over 67 TFLOP/s,
+whichever is larger), and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
 """
@@ -66,8 +80,12 @@ RECORD_TOL = 1e-8
 # (S, Sc, n) for the streaming smoother and the standalone transfers: the
 # bottom of the hierarchy, a mid level, and the record's finest level.
 NEW_SIZES = [(256, 256, 64), (1280, 768, 1024), (16640, 8448, 16384)]
+VAR_LEVEL = 12
+VAR_TOL = 1e-5
 _T = "tpu_multigrid/kernels/transfer.py"
 _S = "tpu_multigrid/kernels/stencil.py:210"
+_VS = "tpu_multigrid/kernels/varstencil.py:149"
+_VT = "tpu_multigrid/kernels/vartransfer.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -82,12 +100,23 @@ REPLACES = {
     "residual": _S,
     "ds_residual": "tpu_multigrid/kernels/compres.py:87",
     "ts_residual": "tpu_multigrid/kernels/compres.py:87",
+    "var_smooth": _VS,
+    "var_smooth_residual": _VS,
+    "var_smooth_restrict_fused": f"{_VT}:76",
+    "var_prolong_smooth_fused": f"{_VT}:222",
+    "var_prolong_smooth_resnorm": f"{_VT}:222",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
-SOURCES = {name: _CSRC + ("compres.cu" if "_residual" in name
-                          and name.startswith(("ds", "ts"))
+SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
+                                                   "ts_residual")
                           else "stencil.cu" if REPLACES[name] == _S
+                          else "varstencil.cu" if REPLACES[name] == _VS
+                          else "vartransfer.cu" if name.startswith("var_")
                           else "transfer.cu") for name in REPLACES}
+# The card's published peaks (H100 SXM, NVIDIA's data sheet): device memory
+# bandwidth, and float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 # Launch counts of each path run of phase 4, by path.
 PATH_COUNTS = {}
 
@@ -170,13 +199,9 @@ def phase_build():
                 print("[build]  " + line.strip())
 
 
-def rel_err_bound(got, want):
-    err = float((got - want).abs().max())
-    bound = 1e-5 * float(want.abs().max()) + 1e-6
-    return err, bound
-
-
 def phase_kernels(errs):
+    """K1, K2 and K2-resnorm at the Poisson solve's level pairs, bitwise
+    (the norm to 1e-4); the ds/ts residuals bitwise."""
     from tpu_multigrid_torch import precision
     from tpu_multigrid_torch.core import ops
     from tpu_multigrid_torch.kernels import compres, transfer
@@ -194,32 +219,20 @@ def phase_kernels(errs):
                 else 2.0 / 3.0
             ku, krc = transfer.smooth_restrict(u, b, n, Sc, nu1, sm, om1)
             pu, prc = transfer.smooth_restrict_plain(u, b, n, Sc, nu1, sm, om1)
-            e1, b1 = rel_err_bound(ku, pu)
-            e2, b2 = rel_err_bound(krc, prc)
-            check(e1 <= b1 and e2 <= b2,
-                  f"K1 {label} {(S, Sc, n)}: u' err {e1} (<= {b1}), "
-                  f"rc err {e2} (<= {b2})")
+            track(errs, "smooth_restrict", ku, pu)
+            track(errs, "smooth_restrict", krc, prc)
             k2 = transfer.prolong_smooth(u, b, ec, n, nu2, sm, om2)
             p2 = transfer.prolong_smooth_plain(u, b, ec, n, nu2, sm, om2)
-            e3, b3 = rel_err_bound(k2, p2)
-            check(e3 <= b3, f"K2 {label} {(S, Sc, n)}: err {e3} (<= {b3})")
+            track(errs, "prolong_smooth", k2, p2)
             k2r, knorm = transfer.prolong_smooth_resnorm(u, b, ec, n, nu2, sm,
                                                          om2)
             p2r, pnorm = transfer.prolong_smooth_resnorm_plain(u, b, ec, n,
                                                                nu2, sm, om2)
-            e4, b4 = rel_err_bound(k2r, p2r)
-            rn = abs(float(knorm) - float(pnorm)) / float(pnorm)
-            check(e4 <= b4 and rn <= 1e-4,
-                  f"K2-resnorm {label} {(S, Sc, n)}: u' err {e4} (<= {b4}),"
-                  f" norm rel err {rn} (<= 1e-4)")
+            track(errs, "prolong_smooth_resnorm", k2r, p2r)
+            rn = track_norm(errs, "prolong_smooth_resnorm", knorm, pnorm)
             print(f"[kernels] {label:9s} S={S:5d} Sc={Sc:5d} n={n:5d}: "
-                  f"K1 u' {e1:.3g} rc {e2:.3g}; K2 {e3:.3g}; "
-                  f"K2-resnorm u' {e4:.3g} norm rel {rn:.3g}")
-            if (S, label) == (PAIRS[-1][0], "chebyshev"):
-                errs["smooth_restrict"] = max(e1, e2)
-                errs["prolong_smooth"] = e3
-                errs["prolong_smooth_resnorm"] = max(
-                    e4, abs(float(knorm) - float(pnorm)))
+                  f"K1 u' and rc, K2, K2-resnorm u' bitwise equal; "
+                  f"K2-resnorm norm rel {rn:.3g}")
     S, n = PAIRS[-1][0], PAIRS[-1][2]
     bb = interior_randn(S, n, gen, 1.0 / n ** 2)
     uh = interior_randn(S, n, gen)
@@ -246,6 +259,17 @@ def track(errs, name, got, want):
     check(torch.equal(got, want),
           f"{name} differs from its plain version: max err {err}")
     errs[name] = max(errs.get(name, 0.0), err)
+
+
+def track_norm(errs, name, got, want):
+    """Check a fused residual norm against its plain version to 1e-4
+    relative (the two sum in different orders); keep the largest absolute
+    difference seen.  Returns the relative difference."""
+    diff = abs(float(got) - float(want))
+    rel = diff / float(want)
+    check(rel <= 1e-4, f"{name}: norm rel err {rel} (<= 1e-4)")
+    errs[name] = max(errs.get(name, 0.0), diff)
+    return rel
 
 
 def phase_new_kernels(errs):
@@ -576,13 +600,279 @@ def phase_deep():
     torch.cuda.empty_cache()
 
 
-def phase_times(card):
+def bench_coefficient(x, y):
+    """benchmarks/bench_var.py's coefficient: 1 + 10 exp(-20 |(x, y) -
+    (0.4, 0.6)|^2), evaluated on torch tensors."""
+    return 1.0 + 10.0 * torch.exp(-((x - 0.4) ** 2 + (y - 0.6) ** 2) * 20)
+
+
+def var_config(use_kernels, **kw):
+    """BASELINE config 4 as benchmarks/bench_var.py runs it: 4097^2, levels
+    12 -> 5, RB-GS (1, 1), a dense coarse inverse at 33^2."""
+    import tpu_multigrid_torch as tmg
+    fields = dict(finest_level=VAR_LEVEL, coarsest_level=5, nu1=1, nu2=1,
+                  smoother="rbgs", use_kernels=use_kernels)
+    fields.update(kw)
+    return tmg.MultigridConfig(**fields)
+
+
+def var_setup():
+    """The 4097^2 Galerkin hierarchy, built once on the host (with the
+    kernels' coefficient planes) and uploaded; shared by the kernel checks,
+    the plain-path runs and the times.  (problem, seconds)."""
+    import tpu_multigrid_torch as tmg
+    t0 = time.perf_counter()
+    prob = tmg.DiffusionProblem(var_config(True),
+                                coefficient=bench_coefficient, device=DEVICE,
+                                align=256, min_pad_level=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"[var] set-up of the {2 ** VAR_LEVEL + 1}^2 Galerkin hierarchy "
+          f"(host build + one upload): {secs:.3f} s; levels (n, S) "
+          f"{[(op.n, op.S) for op in prob.hierarchy.levels]}")
+    return prob, secs
+
+
+def seeded_nonsym_planes(S, n, gen):
+    """(9, S, S) planes of a nonsymmetric 9-point operator from a seed:
+    off-diagonals in (-1.25, -0.25], diagonal in [8, 9), zero outside the
+    interior."""
+    from tpu_multigrid_torch.core import ops
+    c = -0.25 - torch.rand((9, S, S), generator=gen, device=DEVICE)
+    c[0] = 8.0 + torch.rand((S, S), generator=gen, device=DEVICE)
+    return torch.where(ops.interior_mask(S, n, c.device), c, 0.0)
+
+
+def phase_var_kernels(errs, prob):
+    """The var kernels at the finest pair of the 4097^2 hierarchy on its flux
+    operator, at the next pair on its Galerkin level-11 operator, and on a
+    9-plane nonsymmetric operator: bitwise, the resnorm's norm to 1e-4."""
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.kernels import varstencil as V
+    from tpu_multigrid_torch.kernels import vartransfer as VT
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    f, g, c = prob.hierarchy.levels[:3]
+    cases = [("flux", f.coef_sym, f.S, g.S, f.n),
+             ("galerkin-11", g.coef_sym, g.S, c.S, g.n),
+             ("nonsym-9", seeded_nonsym_planes(f.S, f.n, gen), f.S, g.S,
+              f.n)]
+    for label, coef, S, Sc, n in cases:
+        u, b = interior_randn(S, n, gen), interior_randn(S, n, gen)
+        ec = interior_randn(Sc, n // 2, gen)
+        rels = []
+        for sm, om, sweeps in (("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+                               ("rbgs", 2.0 / 3.0, 1)):
+            a = (u, b, coef, n, sweeps, sm, om)
+            track(errs, "var_smooth", V.var_smooth(*a), V.var_smooth_plain(*a))
+            for got, want in zip(V.var_smooth_residual(*a),
+                                 V.var_smooth_residual_plain(*a)):
+                track(errs, "var_smooth_residual", got, want)
+            a = (u, b, coef, n, Sc, sweeps, sm, om)
+            for got, want in zip(VT.var_smooth_restrict_fused(*a),
+                                 VT.var_smooth_restrict_plain(*a)):
+                track(errs, "var_smooth_restrict_fused", got, want)
+            a = (u, b, ec, coef, n, sweeps, sm, om)
+            track(errs, "var_prolong_smooth_fused",
+                  VT.var_prolong_smooth_fused(*a),
+                  VT.var_prolong_smooth_plain(*a))
+            ku, knorm = VT.var_prolong_smooth_resnorm(*a)
+            pu, pnorm = VT.var_prolong_smooth_resnorm_plain(*a)
+            track(errs, "var_prolong_smooth_resnorm", ku, pu)
+            rels.append(track_norm(errs, "var_prolong_smooth_resnorm", knorm,
+                                   pnorm))
+        print(f"[var-kernels] {label:11s} ({coef.shape[0]} planes) S={S:5d} "
+              f"Sc={Sc:5d} n={n:5d}, Chebyshev 3 and RB-GS 1: var smoother "
+              f"(+ residual), K1v, K2v, K2v-resnorm bitwise equal; resnorm "
+              f"norm rel {max(rels):.3g}")
+        del u, b, ec, coef
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def var_state(res):
+    if res.converged:
+        return "converged"
+    return "stalled" if res.stalled else "cycle budget spent"
+
+
+def var_counts(cycles, pairs):
+    """Launches of ``cycles`` cycles of the fused var path over ``pairs``
+    level pairs: K1v on each, K2v on each but the finest, whose K2v fuses
+    the residual norm."""
+    return expect(var_smooth_restrict_fused=cycles * pairs,
+                  var_prolong_smooth_fused=cycles * (pairs - 1),
+                  var_prolong_smooth_resnorm=cycles)
+
+
+def phase_var_slice(prob, setup_secs):
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import kernels
+    from tpu_multigrid_torch.core.grids import coarse_dense_inverse
+    cfg, plain = var_config(True), var_config(False)
+    pairs = cfg.num_levels - 1
+    hier = prob.hierarchy
+
+    # Main path: the front door, counts set to 0 just before, read after.
+    t0 = time.perf_counter()
+    res = drive("diffusion-12", lambda: tmg.solve_diffusion(
+        VAR_LEVEL, coefficient=bench_coefficient, config=cfg, tol=VAR_TOL,
+        device=DEVICE))
+    secs = time.perf_counter() - t0
+    it = res.iterations
+    got = PATH_COUNTS["diffusion-12"]
+    check(got == var_counts(it, pairs),
+          f"solve_diffusion launches {got}, expected {var_counts(it, pairs)}")
+    u = tmg.extract_solution(res.u, 2 ** VAR_LEVEL)
+    check(tuple(res.u.shape) == (hier.levels[0].S,) * 2
+          and bool(torch.isfinite(u).all()) and (res.converged or res.stalled),
+          f"solve_diffusion: shape {tuple(res.u.shape)}, {var_state(res)}")
+    # The same solve over the shared hierarchy: kernels, then plain.
+    b = prob.rhs()
+    t0 = time.perf_counter()
+    rk = tmg.solve_until_tol(hier, cfg, b, tol=VAR_TOL)
+    torch.cuda.synchronize()
+    secs_k = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rp = tmg.solve_until_tol(hier, plain, b, tol=VAR_TOL)
+    torch.cuda.synchronize()
+    secs_p = time.perf_counter() - t0
+    check(set(kernels.launch_counts().values()) == {0},
+          "the plain var path launched kernels")
+    check(np.array_equal(rk.res_history.numpy(), res.res_history.numpy(),
+                         equal_nan=True),
+          "the front door and the shared hierarchy gave different histories")
+    print(f"[var] solve_diffusion({VAR_LEVEL}, tol={VAR_TOL:g}) kernels: "
+          f"{var_state(res)} after {it} iterations, history {hist_str(res)}; "
+          f"launches {nonzero(got)}")
+    print(f"[var] plain:   {var_state(rp)} after {rp.iterations} iterations, "
+          f"history {hist_str(rp)}")
+    print(f"[var] seconds for one call: front door with kernels {secs:.3f} "
+          f"(set-up included); set-up alone {setup_secs:.3f}; solve alone on "
+          f"the built hierarchy: kernels {secs_k:.3f}, plain {secs_p:.3f}")
+    check(abs(rp.iterations - it) <= 1 and (rp.converged or rp.stalled)
+          and float(rp.res_history[0]) == float(res.res_history[0]),
+          f"plain var path: {var_state(rp)} in {rp.iterations}, kernels {it}")
+    del res, rk, rp, u
+
+    # 10 fixed cycles from a seeded random right-hand side, far above the
+    # float32 floor for the first cycles.
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    f = hier.levels[0]
+    br = interior_randn(f.S, f.n, gen)
+    fk = drive("diffusion-12-fixed", lambda: tmg.solve_fixed(hier, cfg, br,
+                                                             10))
+    got = PATH_COUNTS["diffusion-12-fixed"]
+    check(got == var_counts(10, pairs),
+          f"fixed-cycle launches {got}, expected {var_counts(10, pairs)}")
+    fp = tmg.solve_fixed(hier, plain, br, 10)
+    hk, hp = fk.res_history.numpy(), fp.res_history.numpy()
+    rate_k = float(hk[3] / hk[0]) ** (1 / 3)
+    rate_p = float(hp[3] / hp[0]) ** (1 / 3)
+    print(f"[var] 10 fixed cycles, random rhs: kernels {hist_str(fk)}; plain "
+          f"{hist_str(fp)}; mean reduction per cycle over cycles 1-3: "
+          f"kernels {rate_k:.4f}, plain {rate_p:.4f}")
+    check(np.allclose(hk[:4], hp[:4], rtol=1e-3, atol=0) and rate_k < 0.2,
+          "random-rhs histories differ beyond rtol 1e-3 or did not fall")
+
+    # Shifted Poisson on the same kernels (a re-discretized hierarchy).
+    rh = drive("helmholtz-12", lambda: tmg.solve_helmholtz(
+        VAR_LEVEL, shift=lambda x, y: 100.0 * (1.0 + x * y), config=cfg,
+        tol=VAR_TOL, device=DEVICE))
+    got = PATH_COUNTS["helmholtz-12"]
+    check(got == var_counts(rh.iterations, pairs)
+          and bool(torch.isfinite(rh.u).all())
+          and (rh.converged or rh.stalled),
+          f"solve_helmholtz: {var_state(rh)}, launches {got}")
+    print(f"[var] solve_helmholtz({VAR_LEVEL}, shift=100 (1 + x y), "
+          f"tol={VAR_TOL:g}) kernels: {var_state(rh)} after {rh.iterations} "
+          f"iterations, history {hist_str(rh)}; launches {nonzero(got)}")
+    del rh
+
+    # The unfused var level visit, and the var smoother on the coarsest
+    # level, from the random right-hand side; 2 cycles each.
+    inj = var_config(True, restriction="injection")
+    ri = drive("injection-12", lambda: tmg.solve_fixed(hier, inj, br, 2))
+    got = PATH_COUNTS["injection-12"]
+    want = expect(var_smooth_residual=2 * pairs, prolong_add=2 * pairs,
+                  var_smooth=2 * pairs)
+    check(got == want, f"injection launches {got}, expected {want}")
+    rip = tmg.solve_fixed(hier, dataclasses.replace(inj, use_kernels=False),
+                          br, 2)
+    js = var_config(True, smoother="jacobi", nu1=2, nu2=2,
+                    coarse_solver="smooth", coarse_smooth_sweeps=6)
+    rj = drive("smoothed-coarsest-12", lambda: tmg.solve_fixed(hier, js, br,
+                                                               2))
+    got_j = PATH_COUNTS["smoothed-coarsest-12"]
+    want_j = var_counts(2, pairs)
+    want_j["var_smooth"] = 2
+    check(got_j == want_j, f"smoothed-coarsest launches {got_j}, "
+          f"expected {want_j}")
+    rjp = tmg.solve_fixed(hier, dataclasses.replace(js, use_kernels=False),
+                          br, 2)
+    # Injection is not a variational transfer for these operators and may
+    # not reduce the residual; it is checked finite and against the plain
+    # path, the smoothed coarsest level also for a falling residual.
+    for label, k, p, falls in (("injection", ri, rip, False),
+                               ("smoothed coarsest", rj, rjp, True)):
+        hk, hp = k.res_history.numpy(), p.res_history.numpy()
+        print(f"[var] {label}, 2 cycles: kernels {hist_str(k)}, plain "
+              f"{hist_str(p)}")
+        check(np.allclose(hk, hp, rtol=1e-3, atol=0)
+              and np.isfinite(hk).all() and (hk[2] < hk[0] or not falls),
+              f"{label}: histories differ beyond rtol 1e-3, or are not "
+              "finite, or did not fall")
+    print(f"[var] launches: injection {nonzero(got)}; smoothed coarsest "
+          f"{nonzero(got_j)}")
+    del fk, fp, ri, rip, rj, rjp, br
+    torch.cuda.empty_cache()
+
+    # Level 6 against a dense float64 solve of the same flux system.
+    small = dataclasses.replace(cfg, finest_level=6)
+    r6 = tmg.solve_diffusion(6, coefficient=bench_coefficient, config=small,
+                             tol=VAR_TOL, device=DEVICE)
+    p6 = tmg.DiffusionProblem(small, coefficient=bench_coefficient,
+                              device="cpu", align=256, min_pad_level=0)
+    n = 64
+    inv = coarse_dense_inverse(p6.finest, dtype=torch.float64)
+    ref = (inv @ p6.rhs().double()[1:n, 1:n].reshape(-1)).reshape(n - 1,
+                                                                   n - 1)
+    got6 = r6.u[1:n, 1:n].double().cpu()
+    err = float((got6 - ref).abs().max() / ref.abs().max())
+    print(f"[var] level 6 vs dense float64 solve: rel err {err:.3e} "
+          f"({var_state(r6)} after {r6.iterations} iterations)")
+    check(err <= 1e-5, f"level-6 diffusion solve rel err {err}")
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` and do ``flops`` float32 operations, at its peaks."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Float32 operations per node, counted from the kernels' sources: a Jacobi
+# step of the 5-point stencil (4 adds, 3 multiplies), an RB-GS half-step on
+# the half of the nodes it updates (5 each), the residual (6); the same for
+# the 9-point var stencil (Jacobi 21, half-step 18 on half the nodes,
+# residual 19, 1/diag 1); full weighting per coarse node (12); bilinear
+# prolongation plus the add per fine node (3, 8 with TwoSums); the ds / ts
+# residuals (64 / 115, TwoSum = 6).
+JAC, HALF, RES = 7, 2.5, 6
+VJAC, VHALF, VRES, VINV = 21, 9, 19, 1
+FW, PRO, PRO_COMP, DS, TS = 12, 3, 8, 64, 115
+
+
+def phase_times(card, prob_var):
     import tpu_multigrid_torch as tmg
     from tpu_multigrid_torch import precision
     from tpu_multigrid_torch.core import ops
     from tpu_multigrid_torch.kernels import compres, transfer
 
-    times = {}
+    times, work, library = {}, {}, {}
     dof = (2 ** LEVEL - 1) ** 2
     for use in (True, False):
         cfg = tmg.MultigridConfig(finest_level=LEVEL, coarsest_level=5, nu1=3,
@@ -630,6 +920,15 @@ def phase_times(card):
             lambda: compres.ts_residual(b, u, lo, lo, n),
             lambda: precision.ts_residual(b, u, lo, lo, n)),
     }
+    N, Nc = 4 * S * S, 4 * Sc * Sc       # bytes of one fine / coarse array
+    work.update({
+        "smooth_restrict": (3 * N + Nc,
+                            (3 * JAC + RES) * S * S + FW * Sc * Sc),
+        "prolong_smooth": (3 * N + Nc, (PRO + 2 * JAC) * S * S),
+        "prolong_smooth_resnorm": (3 * N + Nc,
+                                   (PRO + 2 * JAC + RES + 2) * S * S),
+        "ds_residual": (4 * N, DS * S * S),
+        "ts_residual": (5 * N, TS * S * S)})
     for name, (kern, plain) in cases.items():
         times[name] = (cuda_ms(kern), cuda_ms(plain))
         k, p = times[name]
@@ -665,11 +964,37 @@ def phase_times(card):
         "prolong_comp": (lambda: transfer.prolong_comp(ec, n, S),
                          lambda: transfer.prolong_comp_plain(ec, n, S)),
     }
+    N, Nc = 4 * S * S, 4 * Sc * Sc
+    work.update({
+        "jacobi_sweeps_residual": (4 * N, (3 * JAC + RES) * S * S),
+        "jacobi_sweeps": (3 * N, 2 * JAC * S * S),
+        "rbgs_sweeps_residual": (4 * N, (4 * HALF + RES) * S * S),
+        "rbgs_sweeps": (3 * N, 4 * HALF * S * S),
+        "residual": (3 * N, RES * S * S),
+        "restrict_fw": (N + Nc, FW * Sc * Sc),
+        "prolong_add": (2 * N + Nc, PRO * S * S),
+        "prolong_comp": (2 * N + Nc, PRO_COMP * S * S)})
     for name, (kern, plain) in cases.items():
         times[name] = (cuda_ms(kern), cuda_ms(plain))
         k, p = times[name]
         print(f"[times] {name:23s} S={S}: kernel {k:.3f} ms, plain {p:.3f} ms"
               f"  ({card})")
+    # One PyTorch call computing the same function: full weighting is a
+    # stride-2 convolution with the 3x3 FW stencil (the kernel also masks
+    # the coarse boundary).  Bilinear prolongation is a stride-2 transposed
+    # convolution, but without prolong_add's add of u: printed beside it,
+    # not a library time of that kernel.
+    import torch.nn.functional as F
+    w1 = torch.tensor([0.5, 1.0, 0.5], device=DEVICE)
+    fw = torch.outer(w1, w1)[None, None]
+    r4, e4 = b[None, None], ec[None, None]
+    library["restrict_fw"] = cuda_ms(
+        lambda: F.conv2d(r4, fw, stride=2, padding=1))
+    ct_ms = cuda_ms(lambda: F.conv_transpose2d(e4, fw, stride=2, padding=1))
+    print(f"[times] library: F.conv2d stride 2 (restriction) "
+          f"{library['restrict_fw']:.3f} ms; F.conv_transpose2d stride 2 "
+          f"(P ec alone) {ct_ms:.3f} ms  ({card})")
+    del r4, e4
     # The compensated adds of the refinement loop stay plain torch on both
     # paths (cycle_ds runs ds_add twice per ds level, the ts loop ts_add
     # twice per iteration).
@@ -695,7 +1020,69 @@ def phase_times(card):
               f"{ms:.3f} ms  ({card})")
         del prob, b
         torch.cuda.empty_cache()
-    return times
+    var_times(card, prob_var, times, work)
+    return times, work, library
+
+
+def var_times(card, prob, times, work):
+    """The 4097^2 var V-cycle on both paths over the shared hierarchy, and
+    each var kernel at its finest pair (flux operator, 5 planes, RB-GS 1)."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.kernels import varstencil as V
+    from tpu_multigrid_torch.kernels import vartransfer as VT
+    hier = prob.hierarchy
+    b = prob.rhs()
+    u = torch.zeros_like(b)
+    dof = (2 ** VAR_LEVEL - 1) ** 2
+    for use in (True, False):
+        cfg = var_config(use)
+        ms = cuda_ms(lambda: tmg.cycle(hier, cfg, u, b))
+        times["var_vcycle" if use else "var_vcycle_plain"] = ms
+        print(f"[times] var V-cycle at {2 ** VAR_LEVEL + 1}^2, RB-GS (1,1), "
+              f"{'kernels' if use else 'plain  '}: {ms:.3f} ms, "
+              f"{dof / (ms * 1e-3):.4g} DOF/s  ({card})")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    f, g = hier.levels[:2]
+    S, Sc, n, coef = f.S, g.S, f.n, f.coef_sym
+    u, b = interior_randn(S, n, gen), interior_randn(S, n, gen)
+    ec = interior_randn(Sc, n // 2, gen)
+    a = (u, b, coef, n, 1, "rbgs")
+    k2 = (u, b, ec, coef, n, 1, "rbgs")
+    cases = {
+        "var_smooth": (lambda: V.var_smooth(*a),
+                       lambda: V.var_smooth_plain(*a)),
+        "var_smooth_residual": (lambda: V.var_smooth_residual(*a),
+                                lambda: V.var_smooth_residual_plain(*a)),
+        "var_smooth_restrict_fused": (
+            lambda: VT.var_smooth_restrict_fused(u, b, coef, n, Sc, 1, "rbgs"),
+            lambda: VT.var_smooth_restrict_plain(u, b, coef, n, Sc, 1,
+                                                 "rbgs")),
+        "var_prolong_smooth_fused": (
+            lambda: VT.var_prolong_smooth_fused(*k2),
+            lambda: VT.var_prolong_smooth_plain(*k2)),
+        "var_prolong_smooth_resnorm": (
+            lambda: VT.var_prolong_smooth_resnorm(*k2),
+            lambda: VT.var_prolong_smooth_resnorm_plain(*k2)),
+    }
+    N, Nc, P = 4 * S * S, 4 * Sc * Sc, coef.shape[0]
+    sweep = (VINV + 2 * VHALF) * S * S
+    work.update({
+        "var_smooth": ((3 + P) * N, sweep),
+        "var_smooth_residual": ((4 + P) * N, sweep + VRES * S * S),
+        "var_smooth_restrict_fused": ((3 + P) * N + Nc,
+                                      sweep + VRES * S * S + FW * Sc * Sc),
+        "var_prolong_smooth_fused": ((3 + P) * N + Nc, sweep + PRO * S * S),
+        "var_prolong_smooth_resnorm": ((3 + P) * N + Nc,
+                                       sweep + (PRO + VRES + 2) * S * S)})
+    for name, (kern, plain) in cases.items():
+        times[name] = (cuda_ms(kern), cuda_ms(plain))
+        k, p = times[name]
+        bms, by = bound(*work[name])
+        print(f"[times] {name:27s} S={S}: kernel {k:.3f} ms, plain {p:.3f} "
+              f"ms, bound {bms:.3f} ms ({by})  ({card})")
+    del u, b, ec, cases
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -711,16 +1098,24 @@ def main():
     record = phase_record()
     phase_fmg()
     phase_deep()
-    times = phase_times(card)
+    prob_var, setup_secs = var_setup()
+    phase_var_kernels(errs, prob_var)
+    phase_var_slice(prob_var, setup_secs)
+    times, work, library = phase_times(card, prob_var)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
     for name, n in launches.items():
         check(n > 0, f"{name} was launched on none of the paths")
     print(f"[record] summary: {json.dumps(record)}")
-    records = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in REPLACES]
+    records = []
+    for name in REPLACES:
+        bms, by = bound(*work[name])
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": times[name][0],
+            "plain_ms": times[name][1], "bound_ms": bms, "bound_by": by,
+            "library_ms": library.get(name)})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,11 +104,12 @@ def test_launches_are_counted(gen):
     transfer.restrict_fw(b, 64, 256)
     transfer.prolong_add(u, b, 64)
     transfer.prolong_comp(b, 64, 256)
-    assert kernels.launch_counts() == dict.fromkeys(
-        ["smooth_restrict", "prolong_smooth", "prolong_smooth_resnorm",
-         "restrict_fw", "prolong_add", "prolong_comp", "jacobi_sweeps",
-         "jacobi_sweeps_residual", "rbgs_sweeps", "rbgs_sweeps_residual",
-         "residual", "ds_residual", "ts_residual"], 1)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == \
+        dict.fromkeys(
+            ["smooth_restrict", "prolong_smooth", "prolong_smooth_resnorm",
+             "restrict_fw", "prolong_add", "prolong_comp", "jacobi_sweeps",
+             "jacobi_sweeps_residual", "rbgs_sweeps", "rbgs_sweeps_residual",
+             "residual", "ds_residual", "ts_residual"], 1)
     # Deep smoothing splits: 10 RB-GS sweeps are 20 half-steps, two launches.
     stencil.rbgs_sweeps(u, b, 64, 10)
     assert kernels.launch_counts()["rbgs_sweeps"] == 3
@@ -247,3 +248,128 @@ def test_ts_refinement_kernel_path_matches_plain_path(gen):
     u = (ko[0].double() + ko[1].double()) + ko[2].double()
     r = ops.mask_interior(b.double() - 4.0 * u + ops.neighbor_sum(u), 1024)
     assert float(ops.norm2(r)) / float(ops.norm2(b.double())) < 1e-10
+
+
+# ---------------------------------------------------------------------------
+# The variable-coefficient kernels: the var-stencil smoother, K1v and K2v
+# ---------------------------------------------------------------------------
+
+def _var_planes(kind, n, S):
+    """Kernel planes on the card: the flux operator (5 planes), a Galerkin
+    9-point level (5 planes) or a nonsymmetric operator from a seed (9)."""
+    import numpy as np
+
+    from tpu_multigrid_torch.core import operators
+    rng = np.random.default_rng(0)
+    if kind == "nonsym":
+        coef = np.zeros((3, 3, S, S), np.float32)
+        coef[:, :, 1:n, 1:n] = -0.25 - rng.random((3, 3, n - 1, n - 1))
+        coef[1, 1, 1:n, 1:n] = 8.0 + rng.random((n - 1, n - 1))
+        op = operators.VarStencilOp(coef, None, n, S, is_symmetric=False)
+    elif kind == "galerkin":
+        cells = (0.5 + rng.random((2 * n, 2 * n))).astype(np.float32)
+        op = operators.galerkin_coarsen_host(
+            operators.diffusion_op_host(cells, 2 * n, 2 * S), S)
+    else:
+        cells = (0.5 + rng.random((n, n))).astype(np.float32)
+        op = operators.diffusion_op_host(cells, n, S)
+    return torch.from_numpy(op.with_sym_planes().coef_sym).cuda()
+
+
+VAR_KINDS = ["flux", "galerkin", "nonsym"]
+VAR_SMOOTHERS = [("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+                 ("jacobi", 2.0 / 3.0, 2), ("rbgs", 2.0 / 3.0, 1),
+                 ("rbgs", 2.0 / 3.0, 3)]
+
+
+@pytest.mark.parametrize("S,n", [(256, 250), (1280, 1000), (2304, 2048)])
+@pytest.mark.parametrize("kind", VAR_KINDS)
+@pytest.mark.parametrize("sm,om,sweeps", VAR_SMOOTHERS)
+def test_var_smooth_matches_plain_bitwise(gen, S, n, kind, sm, om, sweeps):
+    from tpu_multigrid_torch.kernels import varstencil
+    coef = _var_planes(kind, n, S)
+    u, b = _interior(S, n, gen), _interior(S, n, gen)
+    args = (u, b, coef, n, sweeps, sm, om)
+    assert torch.equal(varstencil.var_smooth(*args),
+                       varstencil.var_smooth_plain(*args))
+    kv, kr = varstencil.var_smooth_residual(*args)
+    pv, pr = varstencil.var_smooth_residual_plain(*args)
+    assert torch.equal(kv, pv) and torch.equal(kr, pr)
+
+
+@pytest.mark.parametrize("S,Sc,n", PAIRS)
+@pytest.mark.parametrize("kind", VAR_KINDS)
+@pytest.mark.parametrize("sm,om,sweeps", VAR_SMOOTHERS)
+def test_k1v_k2v_match_plain(gen, S, Sc, n, kind, sm, om, sweeps):
+    from tpu_multigrid_torch.kernels import vartransfer
+    coef = _var_planes(kind, n, S)
+    u, b = _interior(S, n, gen), _interior(S, n, gen)
+    ec = _interior(Sc, n // 2, gen)
+    ku, krc = vartransfer.var_smooth_restrict_fused(u, b, coef, n, Sc,
+                                                    sweeps, sm, om)
+    pu, prc = vartransfer.var_smooth_restrict_plain(u, b, coef, n, Sc,
+                                                    sweeps, sm, om)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    args = (u, b, ec, coef, n, sweeps, sm, om)
+    want = vartransfer.var_prolong_smooth_plain(*args)
+    assert torch.equal(vartransfer.var_prolong_smooth_fused(*args), want)
+    ku, knorm = vartransfer.var_prolong_smooth_resnorm(*args)
+    _, pnorm = vartransfer.var_prolong_smooth_resnorm_plain(*args)
+    assert torch.equal(ku, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-5, atol=0)
+    assert torch.equal(vartransfer.var_prolong_smooth_resnorm(*args)[1],
+                       knorm)
+
+
+def test_var_launches_are_counted_and_bad_inputs_raise(gen):
+    from tpu_multigrid_torch.kernels import varstencil, vartransfer
+    coef = _var_planes("flux", 64, 256)
+    u, b = _interior(256, 64, gen), _interior(256, 64, gen)
+    kernels.reset_launch_counts()
+    varstencil.var_smooth(u, b, coef, 64, 1)
+    varstencil.var_smooth_residual(u, b, coef, 64, 0)
+    vartransfer.var_smooth_restrict_fused(u, b, coef, 64, 256, 1)
+    vartransfer.var_prolong_smooth_fused(u, b, u, coef, 64, 1)
+    vartransfer.var_prolong_smooth_resnorm(u, b, u, coef, 64, 1)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == dict.fromkeys(
+        ["var_smooth", "var_smooth_residual", "var_smooth_restrict_fused",
+         "var_prolong_smooth_fused", "var_prolong_smooth_resnorm"], 1)
+    with pytest.raises(ValueError):
+        varstencil.var_smooth(u, b, coef.cpu(), 64, 1)
+    with pytest.raises(ValueError):
+        varstencil.var_smooth(u, b, coef[:, :, :128].contiguous(), 64, 1)
+    with pytest.raises(ValueError):
+        vartransfer.var_smooth_restrict_fused(u, b, coef, 64, 64, 1)
+    with pytest.raises(ValueError):   # deeper than the shared window
+        vartransfer.var_smooth_restrict_fused(u, b, coef, 64, 256, 40, "rbgs")
+    with pytest.raises(NotImplementedError):
+        varstencil.var_smooth(u.double(), b.double(), coef.double(), 64, 1)
+    assert kernels.launch_counts() == counts
+
+
+def test_var_kernel_path_solve_matches_plain_path(gen):
+    """From a random right-hand side, the kernel path and the plain operator
+    path (which evaluates the operator in another order) agree to float32
+    roundoff while the residual is far above the float32 floor: two cycles
+    (by the third the difference grows past 1e-3, by the fourth to 8 %,
+    measured on the card)."""
+    cfg = tmg.MultigridConfig(finest_level=9, coarsest_level=5, nu1=1, nu2=1,
+                              smoother="rbgs", use_kernels=True)
+    coef = lambda x, y: 1.0 + 10.0 * torch.exp(  # noqa: E731
+        -((x - 0.4) ** 2 + (y - 0.6) ** 2) * 20)
+    prob = tmg.DiffusionProblem(cfg, coefficient=coef, device="cuda",
+                                align=256, min_pad_level=0)
+    b = _interior(prob.finest.S, prob.finest.n, gen)
+    kernels.reset_launch_counts()
+    rk = tmg.solve_fixed(prob.hierarchy, cfg, b, 4)
+    counts = kernels.launch_counts()
+    assert counts["var_smooth_restrict_fused"] == 4 * 4
+    assert counts["var_prolong_smooth_fused"] == 4 * 3
+    assert counts["var_prolong_smooth_resnorm"] == 4
+    rp = tmg.solve_fixed(prob.hierarchy, dataclasses.replace(
+        cfg, use_kernels=False), b, 4)
+    assert kernels.launch_counts() == counts
+    torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
+                               rtol=1e-3, atol=0)
+    assert rk.res_history[3] < 1e-2 * rk.res_history[0]

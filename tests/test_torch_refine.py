@@ -43,7 +43,7 @@ def _pair(level, coarsest, use_kernels=False, **kw):
                              use_kernels=use_kernels, **kw)
     pad = KERNEL_PAD if use_kernels else {}
     return (jmg.PoissonProblem(cj, **pad), cj,
-            tmg.PoissonProblem(ct, **pad), ct)
+            tmg.PoissonProblem(ct, device="cpu", **pad), ct)
 
 
 def _np(x):
@@ -183,10 +183,10 @@ def test_front_door_fmg_with_kernels_matches_jax():
         dtype=jnp.float32, **cfg), use_fmg=True, tol=1e-7)
     kernels.reset_launch_counts()
     rt = tmg.solve_poisson(8, config=tmg.MultigridConfig(
-        use_kernels=True, **cfg), use_fmg=True, tol=1e-7)
+        use_kernels=True, **cfg), use_fmg=True, tol=1e-7, device="cpu")
     assert set(kernels.launch_counts().values()) == {0}
     rp = tmg.solve_poisson(8, config=tmg.MultigridConfig(**cfg),
-                           use_fmg=True, tol=1e-7)
+                           use_fmg=True, tol=1e-7, device="cpu")
     assert rt.u.shape == (512, 512)
     assert rt.converged and bool(rj.converged)
     assert rt.iterations == int(rj.iterations) == rp.iterations
@@ -286,13 +286,14 @@ def test_deep_smoothing_runs_unfused_levels_on_kernels(calls):
     ct = tmg.MultigridConfig(finest_level=8, coarsest_level=5,
                              smoother="rbgs", nu1=10, nu2=10,
                              use_kernels=True)
-    res = tmg.solve_poisson(8, config=ct, num_cycles=2, refined=False)
+    res = tmg.solve_poisson(8, config=ct, num_cycles=2, refined=False,
+                            device="cpu")
     assert calls["rbgs_sweeps_residual"] == 2 and calls["rbgs_sweeps"] == 2
     assert calls["restrict_fw"] == 2 and calls["prolong_add"] == 2
     assert calls["residual"] == 2   # the norm after each cycle
     # The S=256 level pairs below have no row tiling: K1/K2 take them.
     assert calls["smooth_restrict"] == calls["prolong_smooth"] == 4
     plain = tmg.solve_poisson(8, config=dataclasses.replace(
-        ct, use_kernels=False), num_cycles=2, refined=False)
+        ct, use_kernels=False), num_cycles=2, refined=False, device="cpu")
     np.testing.assert_allclose(res.res_history.numpy(),
                                plain.res_history.numpy(), rtol=1e-5)

@@ -62,7 +62,8 @@ def test_f64_until_tol_matches_jax(smoother):
     cj, ct = _configs(finest_level=7, coarsest_level=3, dtype="float64",
                       smoother=smoother, coarse_solver="smooth")
     rj = jmg.solve_poisson(7, config=cj, tol=1e-10, refined=False)
-    rt = tmg.solve_poisson(7, config=ct, tol=1e-10, refined=False)
+    rt = tmg.solve_poisson(7, config=ct, tol=1e-10, refined=False,
+                           device="cpu")
     assert rt.iterations == int(rj.iterations)
     assert rt.converged == bool(rj.converged) is True
     np.testing.assert_allclose(_hist(rt), _hist(rj), rtol=1e-10, atol=F64_ATOL)
@@ -72,7 +73,8 @@ def test_f64_until_tol_matches_jax(smoother):
 def test_f64_direct_coarse_solve_matches_jax():
     cj, ct = _configs(finest_level=7, coarsest_level=3, dtype="float64")
     rj = jmg.solve_poisson(7, config=cj, tol=1e-10, refined=False)
-    rt = tmg.solve_poisson(7, config=ct, tol=1e-10, refined=False)
+    rt = tmg.solve_poisson(7, config=ct, tol=1e-10, refined=False,
+                           device="cpu")
     assert rt.iterations == int(rj.iterations)
     np.testing.assert_allclose(_hist(rt), _hist(rj), rtol=1e-3)
     np.testing.assert_allclose(_u(rt), _u(rj), rtol=0, atol=1e-12)
@@ -83,7 +85,7 @@ def test_f64_cycle_shapes_match_jax(shape):
     cj, ct = _configs(finest_level=6, coarsest_level=3, dtype="float64",
                       cycle=shape, smoother="rbgs", coarse_solver="smooth")
     rj = jmg.solve_poisson(6, config=cj, num_cycles=3, tol=None)
-    rt = tmg.solve_poisson(6, config=ct, num_cycles=3, tol=None)
+    rt = tmg.solve_poisson(6, config=ct, num_cycles=3, tol=None, device="cpu")
     assert rt.iterations == 3 and rt.converged
     np.testing.assert_allclose(_hist(rt), _hist(rj), rtol=1e-10, atol=F64_ATOL)
     np.testing.assert_allclose(_u(rt), _u(rj), rtol=0, atol=1e-12)
@@ -94,7 +96,7 @@ def test_f64_fmg_matches_jax(fmg_rhs):
     cj, ct = _configs(finest_level=6, coarsest_level=2, dtype="float64",
                       nu0=2, coarse_solver="smooth", fmg_rhs=fmg_rhs)
     pj = jmg.PoissonProblem(cj)
-    pt = tmg.PoissonProblem(ct)
+    pt = tmg.PoissonProblem(ct, device="cpu")
     uj = jax.jit(lambda b, bl: jcycles.fmg(pj.hierarchy, cj, b, bl))(
         pj.rhs(), pj.rhs_all_levels())
     ut = tmg.fmg(pt.hierarchy, ct, pt.rhs(), pt.rhs_all_levels())
@@ -108,7 +110,7 @@ def test_f64_front_door_fmg_matches_jax():
     rj = jmg.solve_poisson(6, config=cj, use_fmg=True, num_cycles=2,
                            tol=None)
     rt = tmg.solve_poisson(6, config=ct, use_fmg=True, num_cycles=2,
-                           tol=None)
+                           tol=None, device="cpu")
     np.testing.assert_allclose(_hist(rt), _hist(rj), rtol=1e-10,
                                atol=F64_ATOL)
     np.testing.assert_allclose(_u(rt), _u(rj), rtol=0, atol=1e-12)
@@ -123,7 +125,7 @@ def test_bf16_delta_form_smoothing_matches_jax():
     cj = dataclasses.replace(cj, smooth_dtype=jnp.bfloat16)
     ct = dataclasses.replace(ct, smooth_dtype=torch.bfloat16)
     pj = jmg.PoissonProblem(cj)
-    pt = tmg.PoissonProblem(ct)
+    pt = tmg.PoissonProblem(ct, device="cpu")
     uj = jax.jit(lambda u, b: jmg.cycle(pj.hierarchy, cj, u, b))(
         jnp.zeros_like(pj.rhs()), pj.rhs())
     ut = tmg.cycle(pt.hierarchy, ct, torch.zeros_like(pt.rhs()), pt.rhs())
@@ -138,7 +140,8 @@ def test_f64_boundary_lifting_matches_jax():
                       coarse_solver="smooth")
     g = lambda x, y: 1.0 + x - 2.0 * y  # noqa: E731
     rj = jmg.solve_poisson(6, config=cj, boundary=g, num_cycles=4, tol=None)
-    rt = tmg.solve_poisson(6, config=ct, boundary=g, num_cycles=4, tol=None)
+    rt = tmg.solve_poisson(6, config=ct, boundary=g, num_cycles=4, tol=None,
+                           device="cpu")
     np.testing.assert_allclose(_u(rt), _u(rj), rtol=0, atol=1e-12)
     np.testing.assert_allclose(tmg.extract_solution(rt.u, 64).numpy(),
                                np.asarray(jmg.extract_solution(rj.u, 64)),
@@ -154,7 +157,8 @@ def test_f32_default_refined_solve_matches_jax():
     rj = jmg.solve_poisson(8, config=cj)
     kernels.reset_launch_counts()
     rt = tmg.solve_poisson(8, config=dataclasses.replace(ct,
-                                                         use_kernels=True))
+                                                         use_kernels=True),
+                           device="cpu")
     assert set(kernels.launch_counts().values()) == {0}
     assert rt.converged and bool(rj.converged)
     assert rt.iterations == int(rj.iterations)
@@ -168,7 +172,7 @@ def test_f32_cycle_matches_jax_pallas_interpret():
     cj, ct = _configs(finest_level=9, coarsest_level=5, nu1=3, nu2=2,
                       smoother="chebyshev", use_kernels=True)
     pj = jmg.PoissonProblem(cj, align=256, min_pad_level=0)
-    pt = tmg.PoissonProblem(ct, align=256, min_pad_level=0)
+    pt = tmg.PoissonProblem(ct, align=256, min_pad_level=0, device="cpu")
     assert [(o.n, o.S) for o in pt.hierarchy.levels] == \
         [(o.n, o.S) for o in pj.hierarchy.levels]
     b = pj.rhs()
@@ -192,7 +196,7 @@ def test_until_tol_stall_rule_f32():
     rj = jmg.solve_poisson(9, config=cj, tol=1e-9, refined=False,
                            max_cycles=30)
     rt = tmg.solve_poisson(9, config=ct, tol=1e-9, refined=False,
-                           max_cycles=30)
+                           max_cycles=30, device="cpu")
     assert rt.stalled and rj.stalled and not rt.converged
     h = _hist(rt)[:rt.iterations + 1]
     slow = h[1:] > np.float32(0.9) * h[:-1]
@@ -238,13 +242,13 @@ def test_unported_front_door_options_raise(kw):
                               smooth_dtype=kw.pop("smooth_dtype", None),
                               use_kernels=kw.pop("use_kernels", False))
     with pytest.raises(NotImplementedError):
-        tmg.solve_poisson(5, config=cfg, **kw)
+        tmg.solve_poisson(5, config=cfg, device="cpu", **kw)
 
 
 def test_unported_refinement_entries_raise():
     from tpu_multigrid_torch import precision
     _, ct = _configs(finest_level=5, coarsest_level=3)
-    p = tmg.PoissonProblem(ct)
+    p = tmg.PoissonProblem(ct, device="cpu")
     with pytest.raises(NotImplementedError, match="inner_dtype"):
         precision.solve_refined_ds(p.hierarchy, ct, p.rhs(),
                                    inner_dtype=torch.bfloat16)
@@ -257,7 +261,8 @@ def test_front_door_fmg_with_kernels_runs():
                               use_kernels=True)
     for kw in ({"tol": 1e-6, "refined": True},
                {"tol": 1e-3, "refined": False}):
-        res = tmg.solve_poisson(5, config=cfg, use_fmg=True, **kw)
+        res = tmg.solve_poisson(5, config=cfg, use_fmg=True, device="cpu",
+                                **kw)
         assert res.converged and res.u.shape == (256, 256)
 
 
@@ -266,7 +271,7 @@ def test_refinement_entries_run_where_they_raised():
     (tests/test_torch_refine.py holds them against the JAX package)."""
     from tpu_multigrid_torch import precision
     _, ct = _configs(finest_level=5, coarsest_level=3)
-    p = tmg.PoissonProblem(ct)
+    p = tmg.PoissonProblem(ct, device="cpu")
     e_hi, e_lo = precision.cycle_ds(p.hierarchy, ct, p.rhs(), ds_levels=1)
     assert e_hi.shape == e_lo.shape == p.rhs().shape
     out = precision.solve_refined_ds(p.hierarchy, ct, p.rhs(), ds_levels=1,

@@ -1,4 +1,9 @@
-"""Front-door solve API: the single-device Dirichlet order-2 Poisson path."""
+"""Front-door solve API: single-device Dirichlet solves of Poisson,
+variable-coefficient diffusion and shifted-Poisson (Helmholtz) problems.
+
+Every entry runs on ``device``; ``device=None`` means the card
+(``config.default_device``), and raises where there is none.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +14,8 @@ import torch
 
 from .config import MultigridConfig
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
+from .problems.diffusion import DiffusionProblem
+from .problems.helmholtz import HelmholtzProblem
 from .problems.poisson import PoissonProblem, boundary_grid
 
 
@@ -29,7 +36,8 @@ def solve_poisson(
     bc: str = "dirichlet",
     device: Union[str, torch.device, None] = None,
 ) -> SolveResult:
-    """Solve -lap(u) = forcing on the unit square, on ``device``.
+    """Solve -lap(u) = forcing on the unit square, on ``device`` (the card
+    when None).
 
     Returns a :class:`SolveResult`; ``result.u`` is the (S, S) node grid
     (physical nodes at ``[0:n+1, 0:n+1]``).  ``num_cycles`` forces a fixed
@@ -45,13 +53,8 @@ def solve_poisson(
     ``neumann``, ``bc="periodic"``, ``order=4``, and a ``smooth_dtype``
     other than ``dtype``.
     """
-    if config is None:
-        config = MultigridConfig(finest_level=finest_level)
-    elif config.finest_level != finest_level:
-        config = dataclasses.replace(config, finest_level=finest_level)
-    if mesh is not None:
-        raise NotImplementedError("distributed solves (mesh=) are not "
-                                  "ported yet")
+    config = _level_config(config, finest_level)
+    _check_single_device(config, mesh)
     if neumann:
         raise NotImplementedError("neumann sides are not ported yet")
     if bc == "periodic":
@@ -62,9 +65,6 @@ def solve_poisson(
         raise NotImplementedError("order=4 (Mehrstellen) is not ported yet")
     if order != 2:
         raise ValueError(f"order must be 2 or 4, got {order}")
-    if config.effective_smooth_dtype != config.dtype:
-        raise NotImplementedError("smooth_dtype other than dtype (the delta "
-                                  "form) is not ported yet")
     if refined is None:
         # A tol below the f32 residual floor cannot converge in the plain
         # f32 iterate: route it through compensated refinement.
@@ -74,6 +74,93 @@ def solve_poisson(
                              **_pad_kw(config))
     return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
                 refined=refined, boundary=boundary)
+
+
+def solve_diffusion(
+    finest_level: int = 10,
+    *,
+    coefficient: Union[float, Callable] = 1.0,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 4.0,
+    boundary: Optional[Union[float, Callable]] = None,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    u0=None,
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -div(a grad u) = forcing with per-cell coefficients ``a`` (a
+    constant or ``a(x, y)``, evaluated on torch tensors at the cell centres)
+    on ``device`` (the card when None).  The coarse operators are Galerkin
+    products, built on the host once and uploaded.  ``boundary`` lifts
+    inhomogeneous Dirichlet values as in :func:`solve_poisson`.
+
+    ``mesh`` raises ``NotImplementedError`` (not ported yet).  ``u0`` is a
+    starting guess of the distributed path only: the JAX package's
+    single-device ``solve_diffusion`` takes it and ignores it; here it
+    raises.
+    """
+    config = _level_config(config, finest_level)
+    _check_single_device(config, mesh)
+    if u0 is not None:
+        raise ValueError("u0 is taken only with mesh= (distributed solves, "
+                         "not ported yet); the single-device solve starts "
+                         "from zero or from use_fmg")
+    problem = DiffusionProblem(config, coefficient=coefficient,
+                               forcing=forcing, device=device,
+                               **_pad_kw(config))
+    return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+                boundary=boundary)
+
+
+def solve_helmholtz(
+    finest_level: int = 10,
+    *,
+    shift: Union[float, Callable] = 1.0,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 4.0,
+    boundary: Optional[Union[float, Callable]] = None,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -lap(u) + shift*u = forcing (reaction-diffusion / shifted
+    Poisson) on ``device`` (the card when None).  ``shift`` is a constant
+    c >= 0 or ``c(x, y)``, evaluated on float64 torch tensors at the nodes;
+    every level re-discretizes with diagonal 4 + c h².  It runs on the
+    variable-coefficient machinery, kernels included.  ``mesh`` raises
+    ``NotImplementedError`` (not ported yet).
+    """
+    config = _level_config(config, finest_level)
+    _check_single_device(config, mesh)
+    problem = HelmholtzProblem(config, shift=shift, forcing=forcing,
+                               device=device, **_pad_kw(config))
+    return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+                boundary=boundary)
+
+
+def _level_config(config: Optional[MultigridConfig],
+                  finest_level: int) -> MultigridConfig:
+    if config is None:
+        return MultigridConfig(finest_level=finest_level)
+    if config.finest_level != finest_level:
+        return dataclasses.replace(config, finest_level=finest_level)
+    return config
+
+
+def _check_single_device(config: MultigridConfig, mesh) -> None:
+    """The front doors' options that are not ported yet raise."""
+    if mesh is not None:
+        raise NotImplementedError("distributed solves (mesh=) are not "
+                                  "ported yet")
+    if config.effective_smooth_dtype != config.dtype:
+        raise NotImplementedError("smooth_dtype other than dtype (the delta "
+                                  "form) is not ported yet")
 
 
 def _pad_kw(config: MultigridConfig) -> dict:

@@ -10,9 +10,22 @@ dtypes are ``torch.dtype`` and ``use_pallas`` is ``use_kernels``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
+
+
+def default_device(device: Union[str, torch.device, None] = None
+                   ) -> torch.device:
+    """The device a front-door entry runs on: ``device`` itself, or the card
+    (``cuda``) when it is None.  With no card and no ``device`` this raises
+    rather than run on the CPU; pass ``device="cpu"`` for that."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found: the solvers run on the card "
+                           "by default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from ..config import MultigridConfig
-from .operators import ConstStencilOp, poisson_op
+from .operators import (ConstStencilOp, VarStencilOp, galerkin_coarsen,
+                        galerkin_coarsen_host, poisson_op)
 
 
 def round_up(x: int, m: int) -> int:
@@ -50,6 +51,14 @@ class Hierarchy:
     def num_levels(self) -> int:
         return len(self.levels)
 
+    def to(self, device) -> "Hierarchy":
+        """The hierarchy with every level's arrays and the coarse inverse as
+        tensors on ``device`` (levels without arrays are shared)."""
+        levels = tuple(op.to(device) if hasattr(op, "to") else op
+                       for op in self.levels)
+        inv = None if self.coarse_inv is None else self.coarse_inv.to(device)
+        return Hierarchy(levels, inv)
+
     def __repr__(self):
         return f"Hierarchy({list(self.levels)!r})"
 
@@ -75,18 +84,41 @@ def dense_poisson_matrix(n: int, ndim: int = 2) -> np.ndarray:
     return a
 
 
-def coarse_dense_inverse(op: ConstStencilOp, dtype=torch.float32,
+def coarse_dense_inverse(op, dtype=torch.float32,
                          device=None) -> torch.Tensor:
     """Dense inverse of the interior operator, computed once in float64
-    numpy and stored in ``dtype``."""
-    if type(op) is not ConstStencilOp:
+    numpy and stored in ``dtype`` (float32 unless asked, for every solve
+    dtype, as the JAX package stores it).  The constant stencil is assembled
+    in closed form; a :class:`VarStencilOp` from its coefficient planes
+    (numpy, or tensors copied to the host)."""
+    if type(op) is ConstStencilOp:
+        inv = np.linalg.inv(dense_poisson_matrix(op.n))
+        return torch.as_tensor(inv, dtype=dtype, device=device)
+    if not isinstance(op, VarStencilOp):
         raise NotImplementedError(
-            f"coarse_dense_inverse supports ConstStencilOp only, got {op!r}")
-    inv = np.linalg.inv(dense_poisson_matrix(op.n))
+            f"coarse_dense_inverse supports ConstStencilOp and VarStencilOp "
+            f"only, got {op!r}")
+    coef = op.coef
+    if isinstance(coef, torch.Tensor):
+        coef = coef.cpu().numpy()
+    n = op.n
+    ri = rj = n - 1
+    m = ri * rj
+    a = np.zeros((m, m))
+    idx = np.arange(m).reshape(ri, rj)
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            C = coef[di + 1, dj + 1, 1:n, 1:n].astype(np.float64)
+            i0, i1 = max(0, -di), ri - max(0, di)
+            j0, j1 = max(0, -dj), rj - max(0, dj)
+            rows = idx[i0:i1, j0:j1].ravel()
+            cols = idx[i0 + di:i1 + di, j0 + dj:j1 + dj].ravel()
+            a[rows, cols] += C[i0:i1, j0:j1].ravel()
+    inv = np.linalg.inv(a)
     return torch.as_tensor(inv, dtype=dtype, device=device)
 
 
-def coarse_solve(op: ConstStencilOp, coarse_inv: torch.Tensor,
+def coarse_solve(op, coarse_inv: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Direct coarsest-grid solve via the precomputed dense inverse."""
     inter = (slice(1, op.n), slice(1, op.n))
@@ -108,6 +140,36 @@ def build_poisson_hierarchy(config: MultigridConfig, *, align: int = 1,
     if config.coarse_solver == "direct":
         coarse_inv = coarse_dense_inverse(levels[-1], device=device)
     return Hierarchy(levels, coarse_inv)
+
+
+def build_galerkin_hierarchy(fine_op: VarStencilOp, config: MultigridConfig,
+                             *, align: int = 1, min_pad_level: int = 99,
+                             method: str = "host") -> Hierarchy:
+    """Variable-coefficient hierarchy: coarse operators R A P, built at
+    set-up.  ``method="host"`` evaluates the closed form in numpy
+    (:func:`galerkin_coarsen_host`; the levels hold numpy arrays until
+    :meth:`Hierarchy.to`); ``"probe"`` probes with comb grids in torch
+    (:func:`galerkin_coarsen`) on the fine operator's device, a CPU tensor
+    copy of it where it is numpy.  The coarse inverse is a CPU tensor."""
+    if method == "host":
+        coarsen = galerkin_coarsen_host
+    elif method == "probe":
+        coarsen = galerkin_coarsen
+        if isinstance(fine_op.coef, np.ndarray):
+            fine_op = fine_op.to("cpu")
+    else:
+        raise ValueError(f'method must be "host" or "probe", got {method!r}')
+    sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
+    if sizes[0][0] != fine_op.n:
+        raise ValueError(f"the fine operator has n={fine_op.n}, the config's "
+                         f"finest level n={sizes[0][0]}")
+    levels = [fine_op]
+    for _, Sc in sizes[1:]:
+        levels.append(coarsen(levels[-1], Sc))
+    coarse_inv = None
+    if config.coarse_solver == "direct":
+        coarse_inv = coarse_dense_inverse(levels[-1])
+    return Hierarchy(tuple(levels), coarse_inv)
 
 
 def node_coordinates(n: int, S: int, dtype=torch.float32, device=None):

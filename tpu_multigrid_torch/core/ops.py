@@ -166,15 +166,42 @@ def prolong(ec: torch.Tensor, nc: int, Sf: int) -> torch.Tensor:
     fine[2i,2j] = c[i,j]; odd rows/cols average 2 neighbours; odd-odd
     averages 4.  Coarse rows/cols past the fine array's reach read as zero.
     """
+    return _prolong_phases(ec, nc, Sf, diag="bilinear")
+
+
+def _prolong_phases(ec: torch.Tensor, nc: int, Sf: int, *,
+                    diag: str) -> torch.Tensor:
+    """The bilinear / P1 prolongation: the four parity phases of the fine
+    grid from the coarse one.  ``diag`` sets the odd-odd phase: "bilinear"
+    averages the 4 coarse corners, "p1" the 2 ends of the NE-SW diagonal
+    edge (criss-cross triangulation)."""
     m = min(ec.shape[-1], (Sf + 1) // 2)
     e = ec[..., :m, :m]
     f = ec.new_zeros(ec.shape[:-2] + (2 * m, 2 * m))
     f[..., 0::2, 0::2] = e
     f[..., 1:-1:2, 0::2] = 0.5 * (e[..., :-1, :] + e[..., 1:, :])
     f[..., 0::2, 1:-1:2] = 0.5 * (e[..., :, :-1] + e[..., :, 1:])
-    f[..., 1:-1:2, 1:-1:2] = 0.25 * (e[..., :-1, :-1] + e[..., :-1, 1:]
-                                     + e[..., 1:, :-1] + e[..., 1:, 1:])
+    if diag == "bilinear":
+        f[..., 1:-1:2, 1:-1:2] = 0.25 * (e[..., :-1, :-1] + e[..., :-1, 1:]
+                                         + e[..., 1:, :-1] + e[..., 1:, 1:])
+    else:
+        f[..., 1:-1:2, 1:-1:2] = 0.5 * (e[..., 1:, :-1] + e[..., :-1, 1:])
     return mask_interior(_crop_pad_square(f, Sf), 2 * nc)
+
+
+def restrict_injection(rf: torch.Tensor, nf: int, Sc: int) -> torch.Tensor:
+    """Injection restriction: each coarse node takes the coinciding fine
+    value, times 4 to keep the FEM (h-independent) scaling, masked to the
+    coarse interior."""
+    coarse = 4.0 * rf[..., ::2, ::2]
+    return mask_interior(_crop_pad_square(coarse, Sc), nf // 2)
+
+
+def prolong_p1(ec: torch.Tensor, nc: int, Sf: int) -> torch.Tensor:
+    """P1 (triangular-element) prolongation: as :func:`prolong`, except that
+    the odd-odd nodes lie on the NE-SW diagonal edge and average its two
+    ends, c[i+1, j] and c[i, j+1]."""
+    return _prolong_phases(ec, nc, Sf, diag="p1")
 
 
 def norm2(r: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,13 @@ The recursion walks the hierarchy in Python.  With ``use_kernels`` a level
 visit whose level pair passes :func:`_use_super_kernels` is two kernel
 launches, K1 (smooth + residual + restrict) and K2 (prolong + correct +
 smooth, with the residual norm fused into the finest level's K2 in
-:func:`cycle_with_norm`).  Other kernel-sized levels run the streaming
-smoother (``kernels.stencil``) and the standalone transfers
+:func:`cycle_with_norm`); a variable-coefficient pair that passes
+:func:`_use_var_super_kernels` is K1v and K2v the same way.  Other
+kernel-sized levels run the streaming smoothers (``kernels.stencil``,
+``kernels.varstencil``) and the standalone transfers
 (``kernels.transfer.restrict_fw`` / ``prolong_add``), as the JAX package
-dispatches them; the rest run the plain torch operators.  Only the
-constant-coefficient 2D branch of ``tpu_multigrid.cycles`` is here.
+dispatches them; the rest run the plain torch operators.  The 2D constant-
+and variable-coefficient branches of ``tpu_multigrid.cycles`` are here.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ import torch
 from ..config import MultigridConfig
 from ..core import ops
 from ..core.grids import Hierarchy, coarse_solve
-from ..core.operators import ConstStencilOp
+from ..core.operators import ConstStencilOp, VarStencilOp
 from ..kernels import stencil as _k
 from ..kernels import transfer as _t
+from ..kernels import varstencil as _v
+from ..kernels import vartransfer as _vt
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +63,19 @@ def _stencil_kernel_ok(op, cfg: MultigridConfig, dtype, steps: int) -> bool:
             and _k.supported(op.S, dtype, steps))
 
 
+def _var_kernel_ok(op, cfg: MultigridConfig, dtype, sweeps: int) -> bool:
+    """Whether a variable-coefficient level smooths on the var-stencil
+    kernel (5 symmetric or 9 nonsymmetric planes alike)."""
+    if not (cfg.use_kernels and isinstance(op, VarStencilOp)):
+        return False
+    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
+        return False
+    if cfg.effective_smooth_dtype != dtype:
+        return False
+    steps = 2 * sweeps if cfg.smoother == "rbgs" else sweeps
+    return _v.supported(op.S, steps, dtype)
+
+
 def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
     smoother, omega = _sm(cfg, sweeps)
     steps = 2 * sweeps if smoother == "rbgs" else sweeps
@@ -67,6 +84,9 @@ def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
             return _k.jacobi_sweeps(u, b, op.n, omega, sweeps)
         if smoother == "rbgs":
             return _k.rbgs_sweeps(u, b, op.n, sweeps)
+    if _var_kernel_ok(op, cfg, u.dtype, sweeps):
+        return _v.var_smooth(u, b, _v._flat_coef(op), op.n, sweeps, smoother,
+                             omega)
     return op.smooth(u, b, smoother=smoother, omega=omega, sweeps=sweeps)
 
 
@@ -86,6 +106,9 @@ def _smooth_residual(op, u, b, cfg: MultigridConfig, sweeps: int):
                 return _k.jacobi_sweeps_residual(u, b, op.n, omega, sweeps)
             if smoother == "rbgs":
                 return _k.rbgs_sweeps_residual(u, b, op.n, sweeps)
+    if _var_kernel_ok(op, cfg, u.dtype, sweeps):
+        return _v.var_smooth_residual(u, b, _v._flat_coef(op), op.n, sweeps,
+                                      smoother, omega)
     u = _smooth(op, u, b, cfg, sweeps)
     return u, _residual(op, u, b, cfg)
 
@@ -111,7 +134,7 @@ def _zeros(op, like):
 
 def _restrict(r, nf: int, Sc: int, cfg: MultigridConfig):
     if cfg.restriction == "injection":
-        raise NotImplementedError("restriction='injection' is not ported yet")
+        return ops.restrict_injection(r, nf, Sc)
     if _transfer_kernels_ok(r.shape[-1], Sc, cfg, r.dtype):
         return _t.restrict_fw(r, nf, Sc)
     return ops.restrict_fw(r, nf, Sc)
@@ -119,7 +142,7 @@ def _restrict(r, nf: int, Sc: int, cfg: MultigridConfig):
 
 def _prolong(e, nc: int, Sf: int, cfg: MultigridConfig):
     if cfg.prolongation == "p1":
-        raise NotImplementedError("prolongation='p1' is not ported yet")
+        return ops.prolong_p1(e, nc, Sf)
     return ops.prolong(e, nc, Sf)
 
 
@@ -169,6 +192,46 @@ def _fused_k2(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
                              smooth_dtype=sd)
 
 
+def _use_var_super_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
+    """Whether this variable-coefficient level visit runs as K1v + K2v."""
+    if not (cfg.use_kernels and isinstance(op, VarStencilOp)):
+        return False
+    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
+        return False
+    if cfg.effective_smooth_dtype != dtype:
+        return False
+    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
+        return False
+    mult = 2 if cfg.smoother == "rbgs" else 1
+    steps = mult * max(cfg.nu1, cfg.nu2)
+    return _vt.supported(op.S, opc.S, steps, dtype)
+
+
+def _fused_k1v(op, opc, cfg: MultigridConfig, u, b):
+    smoother, omega = _sm(cfg, cfg.nu1)
+    return _vt.var_smooth_restrict_fused(u, b, _v._flat_coef(op), op.n,
+                                         opc.S, cfg.nu1, smoother, omega)
+
+
+def _fused_k2v(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
+    smoother, omega = _sm(cfg, cfg.nu2)
+    if resnorm:
+        return _vt.var_prolong_smooth_resnorm(u, b, ec, _v._flat_coef(op),
+                                              op.n, cfg.nu2, smoother, omega)
+    return _vt.var_prolong_smooth_fused(u, b, ec, _v._flat_coef(op), op.n,
+                                        cfg.nu2, smoother, omega)
+
+
+def _level_visit_kernels(op, opc, cfg: MultigridConfig, dtype):
+    """(K1, K2) of this level visit's fused pair, or None when it runs
+    unfused: the constant pair first, then the variable-coefficient one."""
+    if _use_super_kernels(op, opc, cfg, dtype):
+        return _fused_k1, _fused_k2
+    if _use_var_super_kernels(op, opc, cfg, dtype):
+        return _fused_k1v, _fused_k2v
+    return None
+
+
 # ---------------------------------------------------------------------------
 # V / W / F cycles
 # ---------------------------------------------------------------------------
@@ -191,15 +254,15 @@ def cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
         return _coarsest_solve(hier, cfg, u, b)
     op = hier.levels[k]
     opc = hier.levels[k + 1]
-    fused = _use_super_kernels(op, opc, cfg, u.dtype)
+    fused = _level_visit_kernels(op, opc, cfg, u.dtype)
     if fused:
-        u, rc = _fused_k1(op, opc, cfg, u, b)
+        u, rc = fused[0](op, opc, cfg, u, b)
     else:
         u, r = _smooth_residual(op, u, b, cfg, cfg.nu1)
         rc = _restrict(r, op.n, opc.S, cfg)
     ec = _coarse_cycles(hier, cfg, rc, k + 1)
     if fused:
-        return _fused_k2(op, cfg, u, b, ec)
+        return fused[1](op, cfg, u, b, ec)
     u = _prolong_add(u, ec, opc.n, op.S, cfg)
     return _smooth(op, u, b, cfg, cfg.nu2)
 
@@ -219,10 +282,11 @@ def cycle_with_norm(hier: Hierarchy, cfg: MultigridConfig, u, b):
         return u, ops.norm2(hier.levels[0].residual(u, b))
     op = hier.levels[0]
     opc = hier.levels[1]
-    if _use_super_kernels(op, opc, cfg, u.dtype):
-        u, rc = _fused_k1(op, opc, cfg, u, b)
+    fused = _level_visit_kernels(op, opc, cfg, u.dtype)
+    if fused:
+        u, rc = fused[0](op, opc, cfg, u, b)
         ec = _coarse_cycles(hier, cfg, rc, 1)
-        return _fused_k2(op, cfg, u, b, ec, resnorm=True)
+        return fused[1](op, cfg, u, b, ec, resnorm=True)
     u = cycle(hier, cfg, u, b)
     return u, ops.norm2(_residual(op, u, b, cfg))
 

@@ -12,7 +12,7 @@ import torch
 
 from .config import MultigridConfig
 from .core.grids import Hierarchy
-from .core.operators import poisson_op
+from .core.operators import VarStencilOp, poisson_op
 from .cycles import SolveResult
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -52,6 +52,26 @@ def hierarchy_from_numpy(sizes, coarse_inv=None, device=None) -> Hierarchy:
     levels = tuple(poisson_op(n, S) for n, S in sizes)
     inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
     return Hierarchy(levels, inv)
+
+
+def var_hierarchy_from_numpy(levels, coarse_inv=None,
+                             device=None) -> Hierarchy:
+    """A variable-coefficient hierarchy from the JAX one's levels, finest
+    first, each a dict of numpy arrays and values: ``coef`` (3, 3, S, S),
+    ``inv_diag``, ``n``, ``S``, ``is_symmetric`` (default True) and
+    ``coef_sym`` (the kernels' planes, or None), plus the coarse dense
+    inverse (numpy, or None when the coarsest level is smoothed); as tensors
+    on ``device``."""
+    ops_ = []
+    for lv in levels:
+        sym = lv.get("coef_sym")
+        ops_.append(VarStencilOp(
+            tensor_from_numpy(lv["coef"], device),
+            tensor_from_numpy(lv["inv_diag"], device), lv["n"], lv["S"],
+            coef_sym=None if sym is None else tensor_from_numpy(sym, device),
+            is_symmetric=lv.get("is_symmetric", True)))
+    inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
+    return Hierarchy(ops_, inv)
 
 
 def result_to_numpy(result: SolveResult) -> dict:

@@ -5,9 +5,9 @@ launches the kernel on CUDA tensors.  Nothing is built when this package is
 imported: ``_build.lib()`` compiles ``csrc/*.cu`` at the first launch.
 """
 
-from . import compres, stencil, transfer
+from . import compres, stencil, transfer, varstencil, vartransfer
 
-_MODULES = (transfer, stencil, compres)
+_MODULES = (transfer, stencil, compres, varstencil, vartransfer)
 
 
 def launch_counts() -> dict:

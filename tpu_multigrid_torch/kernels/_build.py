@@ -55,6 +55,17 @@ _SIGNATURES = {
     "tmt_ds_residual": ([_P, _P, _P, _P, _I, _I, _P], _I),
     # b, u_hi, u_mid, u_lo, r, S, n, stream
     "tmt_ts_residual": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
+    "tmt_var_tile": ([], _I),
+    "tmt_var_max_halo": ([_I], _I),
+    # u, b, coef, u_out, r_out, S, n, steps, rbgs, nplanes, weights, count,
+    # stream
+    "tmt_var_streamed": ([_P] * 5 + [_I] * 5 + [_P, _I, _P], _I),
+    # u, b, coef, u_out, rc, S, Sc, n, steps, rbgs, nplanes, weights, count,
+    # stream
+    "tmt_var_smooth_restrict": ([_P] * 5 + [_I] * 6 + [_P, _I, _P], _I),
+    # u, b, ec, coef, u_out, partials, out_sum, S, Sc, n, steps, rbgs,
+    # nplanes, weights, count, stream
+    "tmt_var_prolong_smooth": ([_P] * 7 + [_I] * 6 + [_P, _I, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -131,8 +142,10 @@ def lib() -> ctypes.CDLL:
     """The bound kernel library, built at first use.  Its constants are read
     once, at binding: ``transfer_tile`` (K1/K2's fine tile edge),
     ``transfer_max_steps`` (the most steps whose K1 window fits in shared
-    memory) and ``stencil_max_steps`` (the most steps of one streaming-
-    smoother launch)."""
+    memory), ``stencil_max_steps`` (the most steps of one streaming-
+    smoother launch), ``var_tile`` (the var kernels' tile edge) and
+    ``var_max_halo`` (nplanes -> the deepest halo of a var kernel's
+    window)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -146,6 +159,9 @@ def lib() -> ctypes.CDLL:
             handle.transfer_tile = handle.tmt_transfer_tile()
             handle.transfer_max_steps = handle.tmt_transfer_max_steps()
             handle.stencil_max_steps = handle.tmt_stencil_max_steps()
+            handle.var_tile = handle.tmt_var_tile()
+            handle.var_max_halo = {p: handle.tmt_var_max_halo(p)
+                                   for p in (5, 9)}
             _lib = handle
     return _lib
 

@@ -11,7 +11,7 @@ from typing import Callable, Union
 
 import torch
 
-from ..config import MultigridConfig
+from ..config import MultigridConfig, default_device
 from ..core import ops
 from ..core.grids import Hierarchy, build_poisson_hierarchy, node_coordinates
 
@@ -52,7 +52,8 @@ def boundary_grid(n: int, S: int, g: Union[float, Callable],
 
 @dataclasses.dataclass
 class PoissonProblem:
-    """Front-door problem object: hierarchy + per-level RHS assembly."""
+    """Front-door problem object: hierarchy + per-level RHS assembly, on
+    ``device`` (the card when None; see ``config.default_device``)."""
 
     config: MultigridConfig
     forcing: Union[float, Callable] = 4.0
@@ -61,6 +62,7 @@ class PoissonProblem:
     device: Union[str, torch.device, None] = None
 
     def __post_init__(self):
+        self.device = default_device(self.device)
         self.hierarchy: Hierarchy = build_poisson_hierarchy(
             self.config, align=self.align, min_pad_level=self.min_pad_level,
             device=self.device)
