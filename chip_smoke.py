@@ -42,11 +42,26 @@ Phases, each printing its own lines:
    var level visit (injection restriction) and the var smoother on a
    smoothed coarsest level, each with exact launch counts; level 6 against
    a dense float64 solve of the same flux system.
-5. Times: ms per V-cycle and DOF/s at 8193^2 and at 4097^2 (var) on both
-   paths, one ts iteration at 16385^2 on both paths, and each kernel beside
-   its plain version (K1/K2/ds/ts at S = 8448, the var kernels at 4352, the
-   others at 16640), with CUDA events (median of 7 after warm-up), and the
-   one PyTorch call that computes the same function where there is one.
+4f. The 3D constant-coefficient slice (solve_poisson3d) at 513^3 (level 9,
+   padded (528, 528, 640), the JAX package's own 3D benchmark size): the 3D
+   kernels against their plain versions, bitwise, at (528, 528, 640) /
+   (272, 272, 384) and (48, 48, 128) / (32, 32, 128), Chebyshev (3, 2) and
+   RB-GS (1, 1), 7-point and 19-point weights (K2_3-resnorm's norm to
+   1e-4); then six paths, each with exact launch counts: the default
+   solve_poisson3d(9) (it stops at the f32 floor) on both paths; the
+   refined solve to 1e-8 on both paths (iterations, seconds with set-up,
+   peak device memory, an independent float64 residual of u_hi + u_lo);
+   RB-GS (1, 1), 3 fixed cycles from a seeded random right-hand side on
+   both paths; solve_poisson3d(6, num_cycles=3), whose finest level takes
+   the residual kernel; solve_poisson3d(9, order=4) on the 19-point weights
+   against the plain path; a refined level-5 solve to 1e-10 against a
+   scipy sparse float64 direct solve.
+5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var) and at 513^3
+   on both paths, one ts iteration at 16385^2 on both paths, and each kernel
+   beside its plain version (K1/K2/ds/ts at S = 8448, the var kernels at
+   4352, the 3D ones at (528, 528, 640), the others at 16640), with CUDA
+   events (median of 7 after warm-up), and the one PyTorch call that
+   computes the same function where there is one.
 
 Every path of phase 4 is driven with all launch counts set to 0 just
 before it and read just after.  Then one JSON line of kernel records, with
@@ -86,6 +101,8 @@ _T = "tpu_multigrid/kernels/transfer.py"
 _S = "tpu_multigrid/kernels/stencil.py:210"
 _VS = "tpu_multigrid/kernels/varstencil.py:149"
 _VT = "tpu_multigrid/kernels/vartransfer.py"
+_S3 = "tpu_multigrid/kernels/stencil3d.py:240"
+_T3 = "tpu_multigrid/kernels/transfer3d.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -105,10 +122,21 @@ REPLACES = {
     "var_smooth_restrict_fused": f"{_VT}:76",
     "var_prolong_smooth_fused": f"{_VT}:222",
     "var_prolong_smooth_resnorm": f"{_VT}:222",
+    "jacobi_sweeps3": _S3,
+    "jacobi_sweeps_residual3": _S3,
+    "rbgs_sweeps3": _S3,
+    "rbgs_sweeps_residual3": _S3,
+    "residual3": _S3,
+    "smooth_restrict3": f"{_T3}:279",
+    "prolong_smooth3": f"{_T3}:501",
+    "prolong_smooth_resnorm3": f"{_T3}:501",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
+                          else "stencil3d.cu" if REPLACES[name] == _S3
+                          else "transfer3d.cu" if REPLACES[name].startswith(
+                              _T3)
                           else "stencil.cu" if REPLACES[name] == _S
                           else "varstencil.cu" if REPLACES[name] == _VS
                           else "vartransfer.cu" if name.startswith("var_")
@@ -195,7 +223,7 @@ def phase_build():
     log = (_build.build_dir() / "build.log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "Used" in line or "Compiling entry" in line:
+            if any(k in line for k in ("Used", "Compiling entry", "spill")):
                 print("[build]  " + line.strip())
 
 
@@ -846,6 +874,413 @@ def phase_var_slice(prob, setup_secs):
     check(err <= 1e-5, f"level-6 diffusion solve rel err {err}")
 
 
+# ---------------------------------------------------------------------------
+# 4f. The 3D constant-coefficient slice
+# ---------------------------------------------------------------------------
+
+LEVEL3 = 9
+TOL3 = 1e-8
+# (fine shape, coarse shape, n): K1_3 / K2_3 at every pair the 513^3 solve
+# fuses (levels 9 -> 8, 8 -> 7, 7 -> 6), and at the pair of levels 5 -> 4
+# (one window's worth of tiles).
+PAIRS3 = [((528, 528, 640), (272, 272, 384), 512),
+          ((272, 272, 384), (144, 144, 256), 256),
+          ((144, 144, 256), (80, 80, 128), 128),
+          ((48, 48, 128), (32, 32, 128), 32)]
+# (shape, n): the streaming smoother at the finest level and at each level
+# the 513^3 solve smooths on it (6, 5, 4).
+SMOOTH3 = [((528, 528, 640), 512), ((80, 80, 128), 64), ((48, 48, 128), 32),
+           ((32, 32, 128), 16)]
+
+
+def interior_randn3(shape, n, gen, scale=1.0):
+    a = torch.zeros(shape, dtype=torch.float32, device=DEVICE)
+    a[1:n, 1:n, 1:n] = scale * torch.randn((n - 1,) * 3, generator=gen,
+                                           device=DEVICE)
+    return a
+
+
+def config3(use_kernels, level=LEVEL3, **kw):
+    """solve_poisson3d's default schedule: Chebyshev (3, 2), coarsest level
+    3 (a 343-unknown dense coarse solve)."""
+    import tpu_multigrid_torch as tmg
+    fields = dict(finest_level=level, smoother="chebyshev", nu1=3, nu2=2,
+                  use_kernels=use_kernels)
+    fields.update(kw)
+    return tmg.MultigridConfig(**fields)
+
+
+def problem3(cfg, order=2):
+    """The front door's padded level layout (S = round_up(n+1, 16), Sx =
+    round_up(n+1, 128)) on the card."""
+    import tpu_multigrid_torch as tmg
+    cls = tmg.Poisson4_3DProblem if order == 4 else tmg.Poisson3DProblem
+    return cls(cfg, align=16, min_pad_level=0, lane_align=128, device=DEVICE)
+
+
+def phase_kernels3d(errs):
+    """The 3D kernels against their plain versions: the streaming smoother
+    (Chebyshev 3 and 2, RB-GS 1, with and without the residual, the residual
+    alone) at each shape of ``SMOOTH3``, and K1_3 / K2_3 / K2_3-resnorm on
+    the 7-point stencil and the 19-point weights at each pair of ``PAIRS3``,
+    bitwise; the norm to 1e-4."""
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.core.operators import Const19Op
+    from tpu_multigrid_torch.kernels import stencil3d as K3
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(6)
+    om3, om2 = ops.chebyshev_omegas(3, 0.4), ops.chebyshev_omegas(2, 0.4)
+    for shape, n in SMOOTH3:
+        u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
+        for name, args in (("jacobi_sweeps3", (u, b, n, om2, 2)),
+                           ("jacobi_sweeps_residual3", (u, b, n, om3, 3)),
+                           ("rbgs_sweeps3", (u, b, n, 1)),
+                           ("rbgs_sweeps_residual3", (u, b, n, 1)),
+                           ("residual3", (u, b, n))):
+            got = getattr(K3, name)(*args)
+            want = getattr(K3, name + "_plain")(*args)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                track(errs, name, g, w)
+        print(f"[kernels3d] {shape} n={n}: streaming smoother (Chebyshev "
+              f"3/2, RB-GS 1, residual) bitwise equal")
+        del u, b
+    for shape, shape_c, n in PAIRS3:
+        u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
+        ec = interior_randn3(shape_c, n // 2, gen)
+        rels = []
+        for st in (None, Const19Op.STENCIL27):
+            for sm, o1, s1, o2, s2 in (("jacobi", om3, 3, om2, 2),
+                                       ("rbgs", 1.0, 1, 1.0, 1)):
+                for g, w in zip(
+                        T3.smooth_restrict3(u, b, n, shape_c, s1, sm, o1, st),
+                        T3.smooth_restrict3_plain(u, b, n, shape_c, s1, sm,
+                                                  o1, st)):
+                    track(errs, "smooth_restrict3", g, w)
+                a = (u, b, ec, n, s2, sm, o2, st)
+                track(errs, "prolong_smooth3", T3.prolong_smooth3(*a),
+                      T3.prolong_smooth3_plain(*a))
+                ku, knorm = T3.prolong_smooth_resnorm3(*a)
+                pu, pnorm = T3.prolong_smooth_resnorm3_plain(*a)
+                track(errs, "prolong_smooth_resnorm3", ku, pu)
+                rels.append(track_norm(errs, "prolong_smooth_resnorm3",
+                                       knorm, pnorm))
+                del ku, pu
+        print(f"[kernels3d] {shape} / {shape_c} n={n}: K1_3, K2_3, "
+              f"K2_3-resnorm (Chebyshev 3/2, RB-GS 1; 7-point and 19-point) "
+              f"bitwise equal; resnorm norm rel {max(rels):.3g}")
+        del u, b, ec
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def counts3(cycles, *, fused=3, unfused=3, resnorm=True, smoother="jacobi"):
+    """Launches of ``cycles`` cycles of the 3D kernel path: K1_3 on each of
+    ``fused`` level pairs, K2_3 on each (the finest one's with the norm when
+    ``resnorm``), and the fused smoother + residual and the smoother on
+    each of ``unfused`` levels."""
+    want = {"smooth_restrict3": cycles * fused,
+            "prolong_smooth3": cycles * (fused - (1 if resnorm else 0)),
+            "prolong_smooth_resnorm3": cycles if resnorm else 0,
+            f"{smoother}_sweeps_residual3": cycles * unfused,
+            f"{smoother}_sweeps3": cycles * unfused}
+    return expect(**{k: v for k, v in want.items() if v})
+
+
+def f64_rel_residual3(b, comps, n):
+    """||b - A(sum of comps)|| / ||b|| in float64 on the card, 7-point."""
+    from tpu_multigrid_torch.core import ops3d
+    u = comps[0].double()
+    for c in comps[1:]:
+        u = u + c.double()
+    b64 = b.double()
+    r = ops3d.mask_interior3(b64 - 6.0 * u + ops3d.neighbor_sum3(u), n)
+    return float(torch.sqrt(torch.sum(r * r))
+                 / torch.sqrt(torch.sum(b64 * b64)))
+
+
+def run_refined3(use_kernels, level=LEVEL3, tol=TOL3):
+    """The refined 3D solve from set-up to the end: (u_hi, u_lo, hist,
+    iterations, converged), seconds, peak bytes, float64 residual."""
+    from tpu_multigrid_torch import precision
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = config3(use_kernels, level)
+    prob = problem3(cfg)
+    b = prob.rhs()
+    out = precision.solve_refined_ds(prob.hierarchy, cfg, b, tol=tol,
+                                     max_iters=40)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return out, secs, peak, f64_rel_residual3(b, out[:2], 2 ** level)
+
+
+def phase_slice3d():
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import kernels
+    n9 = 2 ** LEVEL3
+    shape9 = (528, 528, 640)
+
+    # 1. The default front door: Chebyshev (3, 2), tol 1e-8 unrefined: it
+    # stops at the f32 floor.
+    res = drive("poisson3d-9", lambda: tmg.solve_poisson3d(LEVEL3,
+                                                           device=DEVICE))
+    it = res.iterations
+    got = PATH_COUNTS["poisson3d-9"]
+    check(got == counts3(it), f"solve_poisson3d({LEVEL3}) launches {got}, "
+          f"expected {counts3(it)}")
+    check(tuple(res.u.shape) == shape9
+          and bool(torch.isfinite(res.u).all()) and (res.converged
+                                                     or res.stalled),
+          f"solve_poisson3d({LEVEL3}): shape {tuple(res.u.shape)}, "
+          f"{var_state(res)}")
+    prob_p = problem3(config3(False))
+    rp = tmg.solve_until_tol(prob_p.hierarchy, config3(False), prob_p.rhs(),
+                             tol=TOL3)
+    torch.cuda.synchronize()
+    check(kernels.launch_counts() == got, "the plain 3D path launched kernels")
+    floor_k = float(res.res_history[it] / res.res_history[0])
+    floor_p = float(rp.res_history[rp.iterations] / rp.res_history[0])
+    print(f"[slice3d] solve_poisson3d({LEVEL3}) defaults, kernels: "
+          f"{var_state(res)} after {it} iterations at {floor_k:.3e} of r0, "
+          f"history {hist_str(res)}; launches {nonzero(got)}")
+    print(f"[slice3d] plain: {var_state(rp)} after {rp.iterations} "
+          f"iterations at {floor_p:.3e} of r0, history {hist_str(rp)}")
+    check(abs(rp.iterations - it) <= 1 and (rp.converged or rp.stalled)
+          and floor_k < 1e-2 and floor_p < 1e-2,
+          f"default 3D solve: kernels {it} to {floor_k}, plain "
+          f"{rp.iterations} to {floor_p}")
+    ut = tmg.extract_solution(res.u, n9)
+    up = tmg.extract_solution(rp.u, n9)
+    du = float((ut - up).abs().max()) / float(up.abs().max())
+    print(f"[slice3d] max |u_kernels - u_plain| / max|u_plain| = {du:.3e}")
+    del res, rp, ut, up, prob_p
+    torch.cuda.empty_cache()
+
+    # 2. Refined to 1e-8 on both paths.
+    out, secs, peak, rel = drive("refined3d-9", lambda: run_refined3(True))
+    it = out[3]
+    got = PATH_COUNTS["refined3d-9"]
+    want = counts3(it, resnorm=False)
+    check(got == want, f"refined 3D launches {got}, expected {want}")
+    summary = {"iterations": it, "seconds": secs, "peak_gib": peak / 2 ** 30,
+               "f64_rel_residual": rel}
+    hist = ", ".join(f"{float(x):.4e}" for x in out[2][:it + 1])
+    print(f"[refined3d] kernels at {n9 + 1}^3 tol {TOL3:g}: converged="
+          f"{out[4]} iterations={it} history=[{hist}] seconds (one call, "
+          f"set-up included) {secs:.3f}, max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB, f64 relative residual of u_hi + u_lo "
+          f"{rel:.3e}")
+    check(out[4] and rel <= 2e-8, f"refined 3D: converged={out[4]} in {it}, "
+          f"f64 residual {rel}")
+    del out
+    kernels.reset_launch_counts()
+    out_p, secs_p, peak_p, rel_p = run_refined3(False)
+    check(set(kernels.launch_counts().values()) == {0},
+          "the plain refined 3D path launched kernels")
+    print(f"[refined3d] plain at {n9 + 1}^3 tol {TOL3:g}: converged="
+          f"{out_p[4]} iterations={out_p[3]} seconds (one call, set-up "
+          f"included) {secs_p:.3f}, max_memory_allocated "
+          f"{peak_p / 2 ** 30:.2f} GiB, f64 relative residual {rel_p:.3e}; "
+          f"launches (kernels) {nonzero(got)}")
+    check(out_p[4] and abs(out_p[3] - it) <= 1 and rel_p <= 2e-8,
+          f"refined 3D plain path in {out_p[3]} (kernels {it}), f64 {rel_p}")
+    summary.update(plain_iterations=out_p[3], plain_seconds=secs_p,
+                   plain_peak_gib=peak_p / 2 ** 30)
+    del out_p
+    torch.cuda.empty_cache()
+
+    # 3. RB-GS (1, 1), 3 fixed cycles from a seeded random right-hand side
+    # (far above the f32 floor), both paths on one hierarchy.
+    rb = config3(True, smoother="rbgs", nu1=1, nu2=1)
+    prob = problem3(rb)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    br = interior_randn3(shape9, n9, gen)
+    rk = drive("rbgs3d-9", lambda: tmg.solve_fixed(prob.hierarchy, rb, br, 3))
+    got = PATH_COUNTS["rbgs3d-9"]
+    want = counts3(3, smoother="rbgs")
+    check(got == want, f"RB-GS 3D launches {got}, expected {want}")
+    rpl = tmg.solve_fixed(prob.hierarchy, dataclasses.replace(
+        rb, use_kernels=False), br, 3)
+    hk, hp = rk.res_history.numpy(), rpl.res_history.numpy()
+    print(f"[slice3d] RB-GS (1, 1), 3 cycles, random rhs at {n9 + 1}^3: "
+          f"kernels {hist_str(rk)} plain {hist_str(rpl)}; launches "
+          f"{nonzero(got)}")
+    check(np.allclose(hk, hp, rtol=1e-3, atol=0) and hk[3] < 1e-2 * hk[0],
+          "RB-GS 3D histories differ beyond rtol 1e-3 or did not fall")
+    del prob, br, rk, rpl
+    torch.cuda.empty_cache()
+
+    # 4. Level 6: too narrow for K1_3 (Sx = 128); the norm takes residual3.
+    r6 = drive("poisson3d-6", lambda: tmg.solve_poisson3d(
+        6, num_cycles=3, device=DEVICE))
+    got = PATH_COUNTS["poisson3d-6"]
+    want = counts3(3, fused=0, resnorm=False)
+    want["residual3"] = 3
+    check(got == want, f"solve_poisson3d(6) launches {got}, expected {want}")
+    r6p = tmg.solve_poisson3d(6, config=config3(False, 6), num_cycles=3,
+                              device=DEVICE)
+    h6, h6p = r6.res_history.numpy(), r6p.res_history.numpy()
+    print(f"[slice3d] solve_poisson3d(6, num_cycles=3): kernels "
+          f"{hist_str(r6)} plain {hist_str(r6p)}; launches {nonzero(got)}")
+    check(np.allclose(h6[:3], h6p[:3], rtol=1e-2, atol=0)
+          and h6[3] < 1e-2 * h6[0], "level-6 3D histories differ or stall")
+
+    # 5. The 19-point Mehrstellen operator on K1_3 / K2_3's static weights.
+    r4 = drive("order4-9", lambda: tmg.solve_poisson3d(LEVEL3, order=4,
+                                                       device=DEVICE))
+    it4 = r4.iterations
+    got = PATH_COUNTS["order4-9"]
+    want = counts3(it4, unfused=0)
+    check(got == want, f"order=4 launches {got}, expected {want}")
+    p4 = problem3(config3(False), order=4)
+    r4p = tmg.solve_until_tol(p4.hierarchy, config3(False), p4.rhs(),
+                              tol=TOL3)
+    torch.cuda.synchronize()
+    print(f"[slice3d] solve_poisson3d({LEVEL3}, order=4) kernels: "
+          f"{var_state(r4)} after {it4} iterations, history {hist_str(r4)}; "
+          f"plain {var_state(r4p)} after {r4p.iterations}, history "
+          f"{hist_str(r4p)}; launches {nonzero(got)}")
+    check((r4.converged or r4.stalled) and abs(r4p.iterations - it4) <= 1
+          and bool(torch.isfinite(r4.u).all()),
+          f"order=4: kernels {it4}, plain {r4p.iterations}")
+    del r4, r4p, p4
+    torch.cuda.empty_cache()
+
+    # 6. A refined level-5 solve against scipy's sparse float64 direct solve
+    # of the same 7-point system (29791 unknowns).
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    out5, _, _, rel5 = drive("refined3d-5", lambda: run_refined3(True, 5,
+                                                                1e-10))
+    got = PATH_COUNTS["refined3d-5"]
+    want = counts3(out5[3], fused=0, unfused=2, resnorm=False)
+    check(got == want, f"refined level-5 launches {got}, expected {want}")
+    m = 31
+    one = sp.identity(m)
+    t = sp.diags([-np.ones(m - 1), 2 * np.ones(m), -np.ones(m - 1)],
+                 [-1, 0, 1])
+    a = (sp.kron(sp.kron(t, one), one) + sp.kron(sp.kron(one, t), one)
+         + sp.kron(sp.kron(one, one), t)).tocsc()
+    b5 = problem3(config3(True, 5)).rhs()
+    ref = spl.spsolve(a, b5[1:32, 1:32, 1:32].double().cpu().reshape(-1)
+                      .numpy())
+    sol = (out5[0].double() + out5[1].double())[1:32, 1:32, 1:32]
+    err = float(np.abs(sol.cpu().reshape(-1).numpy() - ref).max()
+                / np.abs(ref).max())
+    print(f"[slice3d] refined level 5 (tol 1e-10, {out5[3]} iterations) vs "
+          f"scipy sparse float64 direct solve: rel err {err:.3e}; f64 "
+          f"residual {rel5:.3e}; launches {nonzero(got)}")
+    check(out5[4] and err <= 1e-7, f"level-5 refined rel err {err}")
+    return summary
+
+
+# Float32 operations per node, counted from the 3D kernels' sources: a
+# Jacobi step of the 7-point stencil (6 adds, 2 multiplies, 1 add), an RB-GS
+# half-step on the half of the nodes it updates (7 each), the residual (8);
+# the 19-point stencil's Jacobi step (18 multiplies, 17 adds, and 4); the
+# 3D full weighting per coarse node (9 x-blurs, 3 y-blurs, 1 z-blur of 3
+# each, a halving: 40); trilinear prolongation plus the add per fine node
+# (7 on average).
+JAC3, HALF3, RES3, JAC19, FW3, PRO3 = 9, 3.5, 8, 39, 40, 7
+
+
+def times3d(card, times, work):
+    """The 513^3 V-cycle on both paths, and each 3D kernel at the finest
+    pair beside its plain version (Chebyshev 3 for K1_3 and the fused
+    smoother, 2 for K2_3 and the smoother, RB-GS 1 for its entries)."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.kernels import stencil3d as K3
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    dof = (2 ** LEVEL3 - 1) ** 3
+    for use in (True, False):
+        cfg = config3(use)
+        prob = problem3(cfg)
+        b = prob.rhs()
+        u = torch.zeros_like(b)
+        ms = cuda_ms(lambda: tmg.cycle(prob.hierarchy, cfg, u, b))
+        times["vcycle3d" if use else "vcycle3d_plain"] = ms
+        print(f"[times] V-cycle at {2 ** LEVEL3 + 1}^3, Chebyshev (3, 2), "
+              f"{'kernels' if use else 'plain  '}: {ms:.3f} ms, "
+              f"{dof / (ms * 1e-3):.4g} DOF/s  ({card})")
+        del prob, b, u
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(8)
+    shape, shape_c, n = PAIRS3[0]
+    u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
+    ec = interior_randn3(shape_c, n // 2, gen)
+    om3, om2 = ops.chebyshev_omegas(3, 0.4), ops.chebyshev_omegas(2, 0.4)
+    cases = {
+        "smooth_restrict3": (u, b, n, shape_c, 3, "jacobi", om3),
+        "prolong_smooth3": (u, b, ec, n, 2, "jacobi", om2),
+        "prolong_smooth_resnorm3": (u, b, ec, n, 2, "jacobi", om2),
+        "jacobi_sweeps3": (u, b, n, om2, 2),
+        "jacobi_sweeps_residual3": (u, b, n, om3, 3),
+        "rbgs_sweeps3": (u, b, n, 1),
+        "rbgs_sweeps_residual3": (u, b, n, 1),
+        "residual3": (u, b, n),
+    }
+    # The bytes each function needs: every output written in full (padded
+    # cube); u read over the (n+1)^3 nodes that the interior's stencils
+    # reach, but in full for RB-GS, which keeps u outside the interior, and
+    # only over the interior for K2_3, which masks u + P e_c first; b over
+    # the interior; e_c over the (n/2+1)^3 coarse nodes that P reads.  The
+    # operations count the interior nodes.
+    cells = shape[0] * shape[1] * shape[2]
+    ccells = shape_c[0] * shape_c[1] * shape_c[2]
+    reach, inner = (n + 1) ** 3, (n - 1) ** 3
+    creach, cinner = (n // 2 + 1) ** 3, (n // 2 - 1) ** 3
+    k1 = 4 * (reach + inner + cells + ccells)
+    k2 = 4 * (2 * inner + creach + cells)
+    work.update({
+        "smooth_restrict3": (k1, (3 * JAC3 + RES3) * inner + FW3 * cinner),
+        "prolong_smooth3": (k2, (PRO3 + 2 * JAC3) * inner),
+        "prolong_smooth_resnorm3": (k2 + 4,
+                                    (PRO3 + 2 * JAC3 + RES3 + 2) * inner),
+        "jacobi_sweeps3": (4 * (reach + inner + cells), 2 * JAC3 * inner),
+        "jacobi_sweeps_residual3": (4 * (reach + inner + 2 * cells),
+                                    (3 * JAC3 + RES3) * inner),
+        "rbgs_sweeps3": (4 * (2 * cells + inner), 2 * HALF3 * inner),
+        "rbgs_sweeps_residual3": (4 * (3 * cells + inner),
+                                  (2 * HALF3 + RES3) * inner),
+        "residual3": (4 * (reach + inner + cells), RES3 * inner)})
+    for name, args in cases.items():
+        mod = T3 if name in T3.LAUNCHES else K3
+        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        times[name] = (cuda_ms(lambda: kern(*args)),
+                       cuda_ms(lambda: plain(*args)))
+        k, p = times[name]
+        bms, by = bound(*work[name])
+        print(f"[times] {name:27s} {shape}: kernel {k:.3f} ms, plain {p:.3f} "
+              f"ms, bound {bms:.3f} ms ({by})  ({card})")
+    from tpu_multigrid_torch.core.operators import Const19Op
+    st = Const19Op.STENCIL27
+    k19 = cuda_ms(lambda: T3.smooth_restrict3(u, b, n, shape_c, 3, "jacobi",
+                                              om3, st))
+    bms, by = bound(k1, (3 * JAC19 + JAC19) * inner + FW3 * cinner)
+    print(f"[times] smooth_restrict3 19-point     {shape}: kernel {k19:.3f} "
+          f"ms, bound {bms:.3f} ms ({by})  ({card})")
+    del cases
+    # The refinement loop's other steps stay plain torch on both paths (the
+    # JAX package has no 3D compensated-residual kernel): one ds residual
+    # and one ds_add per refined iteration.
+    from tpu_multigrid_torch import precision
+    lo = interior_randn3(shape, n, gen, 1e-7)
+    for name, fn in (("ds_residual3", lambda: precision.ds_residual(
+            b, u, lo, n)), ("ds_add3", lambda: precision.ds_add(u, lo, b))):
+        times[name] = cuda_ms(fn)
+        print(f"[times] {name:27s} {shape}: plain torch only "
+              f"{times[name]:.3f} ms  ({card})")
+    del u, b, ec, lo
+    torch.cuda.empty_cache()
+
+
 def bound(nbytes, flops):
     """(ms, "bytes" or "operations"): the least time the card could take to
     move ``nbytes`` and do ``flops`` float32 operations, at its peaks."""
@@ -1021,6 +1456,7 @@ def phase_times(card, prob_var):
         del prob, b
         torch.cuda.empty_cache()
     var_times(card, prob_var, times, work)
+    times3d(card, times, work)
     return times, work, library
 
 
@@ -1101,12 +1537,15 @@ def main():
     prob_var, setup_secs = var_setup()
     phase_var_kernels(errs, prob_var)
     phase_var_slice(prob_var, setup_secs)
+    phase_kernels3d(errs)
+    record3d = phase_slice3d()
     times, work, library = phase_times(card, prob_var)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
     for name, n in launches.items():
         check(n > 0, f"{name} was launched on none of the paths")
     print(f"[record] summary: {json.dumps(record)}")
+    print(f"[refined3d] summary: {json.dumps(record3d)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

@@ -373,3 +373,119 @@ def test_var_kernel_path_solve_matches_plain_path(gen):
     torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
                                rtol=1e-3, atol=0)
     assert rk.res_history[3] < 1e-2 * rk.res_history[0]
+
+
+# ---------------------------------------------------------------------------
+# The 3D kernels: the streaming smoother, K1_3 and K2_3
+# ---------------------------------------------------------------------------
+
+def _interior3(shape, n, gen, scale=1.0):
+    a = torch.zeros(shape, device="cuda")
+    a[1:n, 1:n, 1:n] = scale * torch.randn((n - 1,) * 3, generator=gen,
+                                           device="cuda")
+    return a
+
+
+# (fine shape, coarse shape, n): one window's worth of tiles (levels 5 -> 4),
+# and grids of many tiles with a padded x side (levels 7 -> 6 and 8 -> 7).
+PAIRS3 = [((48, 48, 128), (32, 32, 128), 32),
+          ((144, 144, 256), (80, 80, 128), 128),
+          ((272, 272, 384), (144, 144, 256), 256)]
+SMOOTHERS3 = [("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+              ("jacobi", ops.chebyshev_omegas(2, 0.4), 2),
+              ("rbgs", 1.0, 1)]
+
+
+@pytest.mark.parametrize("shape,shape_c,n", PAIRS3)
+@pytest.mark.parametrize("sm,om,sweeps", SMOOTHERS3)
+def test_stencil3d_matches_plain_bitwise(gen, shape, shape_c, n, sm, om,
+                                         sweeps):
+    from tpu_multigrid_torch.kernels import stencil3d as K3
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    if sm == "rbgs":
+        got = [K3.rbgs_sweeps3(u, b, n, sweeps),
+               *K3.rbgs_sweeps_residual3(u, b, n, sweeps)]
+        want = [K3.rbgs_sweeps3_plain(u, b, n, sweeps),
+                *K3.rbgs_sweeps_residual3_plain(u, b, n, sweeps)]
+    else:
+        got = [K3.jacobi_sweeps3(u, b, n, om, sweeps),
+               *K3.jacobi_sweeps_residual3(u, b, n, om, sweeps)]
+        want = [K3.jacobi_sweeps3_plain(u, b, n, om, sweeps),
+                *K3.jacobi_sweeps_residual3_plain(u, b, n, om, sweeps)]
+    got.append(K3.residual3(u, b, n))
+    want.append(K3.residual3_plain(u, b, n))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_stencil3d_deep_smoothing_splits_launches(gen):
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import stencil3d as K3
+    shape, n = (80, 80, 128), 64
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    chunk = _build.lib().stencil3d_max_steps
+    om = ops.chebyshev_omegas(10, 0.4)
+    kernels.reset_launch_counts()
+    assert torch.equal(K3.jacobi_sweeps3(u, b, n, om, 10),
+                       K3.jacobi_sweeps3_plain(u, b, n, om, 10))
+    got = K3.rbgs_sweeps_residual3(u, b, n, 5)
+    want = K3.rbgs_sweeps_residual3_plain(u, b, n, 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    counts = kernels.launch_counts()
+    assert counts["jacobi_sweeps3"] == -(-10 // chunk)
+    assert counts["rbgs_sweeps_residual3"] == -(-10 // chunk)
+
+
+@pytest.mark.parametrize("shape,shape_c,n", PAIRS3)
+@pytest.mark.parametrize("sm,om,sweeps", SMOOTHERS3)
+@pytest.mark.parametrize("stencil", [None, "19"])
+def test_k1_3_k2_3_match_plain(gen, shape, shape_c, n, sm, om, sweeps,
+                               stencil):
+    from tpu_multigrid_torch.core.operators import Const19Op
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    st = Const19Op.STENCIL27 if stencil else None
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    ec = _interior3(shape_c, n // 2, gen)
+    ku, krc = T3.smooth_restrict3(u, b, n, shape_c, sweeps, sm, om, st)
+    pu, prc = T3.smooth_restrict3_plain(u, b, n, shape_c, sweeps, sm, om, st)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    args = (u, b, ec, n, sweeps, sm, om, st)
+    want = T3.prolong_smooth3_plain(*args)
+    assert torch.equal(T3.prolong_smooth3(*args), want)
+    kv, knorm = T3.prolong_smooth_resnorm3(*args)
+    _, pnorm = T3.prolong_smooth_resnorm3_plain(*args)
+    assert torch.equal(kv, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-5, atol=0)
+    assert torch.equal(T3.prolong_smooth_resnorm3(*args)[1], knorm)
+
+
+def test_3d_bad_inputs_raise(gen):
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    shape, shape_c, n = PAIRS3[0]
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    with pytest.raises(ValueError):   # deeper than the 3D window
+        T3.smooth_restrict3(u, b, n, shape_c, 10)
+    with pytest.raises(ValueError):   # the coarse grid misses S/2
+        T3.smooth_restrict3(u, b, n, (16, 16, 128), 1)
+    with pytest.raises(ValueError):
+        T3.prolong_smooth3(u, b, u.cpu(), n, 1)
+
+
+def test_3d_kernel_path_solve_matches_plain_path(gen):
+    """solve_poisson3d(7) on the kernels and on the plain operators (the
+    jnp order): equal launch counts to the CPU spies, histories to rtol
+    1e-3 above the f32 floor."""
+    cfg = tmg.MultigridConfig(finest_level=7, smoother="chebyshev", nu1=3,
+                              nu2=2, use_kernels=True)
+    kernels.reset_launch_counts()
+    rk = tmg.solve_poisson3d(7, config=cfg, num_cycles=3, device="cuda")
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(smooth_restrict3=3, prolong_smooth_resnorm3=3,
+                jacobi_sweeps_residual3=9, jacobi_sweeps3=9)
+    assert counts == want
+    rp = tmg.solve_poisson3d(7, config=dataclasses.replace(
+        cfg, use_kernels=False), num_cycles=3, device="cuda")
+    assert kernels.launch_counts() == counts
+    torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
+                               rtol=1e-3, atol=0)

@@ -189,9 +189,10 @@ def test_unported_kernel_options_raise(option):
 
 def test_build_is_keyed_by_the_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["compres.cu", "stencil.cu", "transfer.cu",
-                     "varstencil.cu", "vartransfer.cu", "levelvisit.cuh",
-                     "twosum.cuh", "varwindow.cuh", "window.cuh"]
+    assert names == ["compres.cu", "stencil.cu", "stencil3d.cu",
+                     "transfer.cu", "transfer3d.cu", "varstencil.cu",
+                     "vartransfer.cu", "levelvisit.cuh", "twosum.cuh",
+                     "varwindow.cuh", "window.cuh", "window3.cuh"]
     d = _build.build_dir()
     assert d.parent.name == "build" and d.name.startswith("kernels-")
     assert _build.build_dir() == d

@@ -85,8 +85,13 @@ def test_cycle_ds_below_ds_levels_is_the_plain_cycle():
     assert torch.equal(e_hi, tmg.cycle(pt.hierarchy, ct, torch.zeros_like(b),
                                        b))
     assert not e_lo.any()
-    with pytest.raises(NotImplementedError, match="3D"):
-        precision.cycle_ds(pt.hierarchy, ct, torch.zeros((8, 8, 8)))
+    # The 3D branch too (ported since): a 3D hierarchy, shape kept.
+    p3 = tmg.Poisson3DProblem(ct, device="cpu")
+    b3 = p3.rhs()
+    e_hi, e_lo = precision.cycle_ds(p3.hierarchy, ct, b3, ds_levels=0)
+    assert e_hi.shape == (65, 65, 65) and not e_lo.any()
+    assert torch.equal(e_hi, tmg.cycle(p3.hierarchy, ct, torch.zeros_like(b3),
+                                       b3))
 
 
 def test_solve_refined_ds_with_ds_levels_matches_jax():

@@ -1,5 +1,6 @@
-"""Front-door solve API: single-device Dirichlet solves of Poisson,
-variable-coefficient diffusion and shifted-Poisson (Helmholtz) problems.
+"""Front-door solve API: single-device Dirichlet solves of Poisson (2D and
+3D), variable-coefficient diffusion and shifted-Poisson (Helmholtz)
+problems.
 
 Every entry runs on ``device``; ``device=None`` means the card
 (``config.default_device``), and raises where there is none.
@@ -12,11 +13,13 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from .config import MultigridConfig
+from .config import MultigridConfig, default_device
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
 from .problems.diffusion import DiffusionProblem
 from .problems.helmholtz import HelmholtzProblem
 from .problems.poisson import PoissonProblem, boundary_grid
+from .problems.poisson3d import Poisson3DProblem, boundary_grid3
+from .problems.poisson4_3d import Poisson4_3DProblem
 
 
 def solve_poisson(
@@ -144,6 +147,72 @@ def solve_helmholtz(
                 boundary=boundary)
 
 
+def solve_poisson3d(
+    finest_level: int = 6,
+    *,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 6.0,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    refined: bool = False,
+    mesh=None,
+    bc: str = "dirichlet",
+    order: int = 2,
+    boundary: Optional[Union[float, Callable]] = None,
+    neumann=(),
+    neumann_value: Union[float, Callable] = 0.0,
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -lap(u) = forcing on the unit cube with Dirichlet boundaries,
+    on ``device`` (the card when None).
+
+    ``result.u`` is the (S, S, Sx) node grid, physical nodes at
+    ``[0:n+1]`` on each axis; every level is padded to S = round_up(n+1,
+    16), Sx = round_up(n+1, 128), the layout the 3D kernels take.
+    ``boundary`` (a constant or ``g(x, y, z)``) lifts inhomogeneous face
+    values.  ``order=4`` takes the compact 19-point Mehrstellen stencil and
+    its smoothed right-hand side.  ``refined=True`` runs compensated
+    double-single refinement: the f32 residual floor in 3D grows like
+    eps n^2.  The default config is Chebyshev (3, 2), with the kernels on
+    when the solve runs on the card.
+
+    Not ported yet (each raises ``NotImplementedError``): ``mesh``,
+    ``neumann``, ``bc="periodic"``, and a ``smooth_dtype`` other than
+    ``dtype``.
+    """
+    device = default_device(device)
+    if config is None:
+        config = MultigridConfig(finest_level=finest_level,
+                                 smoother="chebyshev", nu1=3, nu2=2,
+                                 use_kernels=device.type == "cuda")
+    config = _level_config(config, finest_level)
+    _check_single_device(config, mesh)
+    if neumann:
+        raise NotImplementedError("neumann faces (3D) are not ported yet")
+    if order == 4:
+        if bc != "dirichlet" or refined:
+            raise ValueError("order=4 (3D) supports the Dirichlet unrefined "
+                             "path")
+        pad = (dict(align=16, min_pad_level=0, lane_align=128)
+               if config.use_kernels else {})
+        problem = Poisson4_3DProblem(config, forcing=forcing, device=device,
+                                     **pad)
+        return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+                    boundary=boundary)
+    if order != 2:
+        raise ValueError(f"order must be 2 or 4, got {order}")
+    if bc == "periodic":
+        raise NotImplementedError('bc="periodic" (3D) is not ported yet')
+    if bc != "dirichlet":
+        raise ValueError(f'bc must be "dirichlet" or "periodic", got {bc!r}')
+    problem = Poisson3DProblem(config, forcing=forcing, align=16,
+                               min_pad_level=0, lane_align=128, device=device)
+    return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+                refined=refined, boundary=boundary)
+
+
 def _level_config(config: Optional[MultigridConfig],
                   finest_level: int) -> MultigridConfig:
     if config is None:
@@ -179,7 +248,12 @@ def _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
     if boundary is not None:
         # u = w + G, G holding the boundary values; w solves A w = b - A G.
         op0 = hier.levels[0]
-        lift = boundary_grid(op0.n, op0.S, boundary, config.dtype, b.device)
+        if getattr(op0, "ndim", 2) == 3:
+            lift = boundary_grid3(op0.n, op0.grid_shape, boundary,
+                                  config.dtype, b.device)
+        else:
+            lift = boundary_grid(op0.n, op0.S, boundary, config.dtype,
+                                 b.device)
         b = b - op0.apply(lift)
     if tol is None and num_cycles is None:
         raise ValueError("need either tol or num_cycles (both are None)")
@@ -199,5 +273,5 @@ def _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
 
 
 def extract_solution(result_u: torch.Tensor, n: int) -> torch.Tensor:
-    """Crop the padded solve grid to the physical (n+1, n+1) node grid."""
-    return result_u[..., :n + 1, :n + 1]
+    """Crop the padded solve grid to the physical (n+1,)^d node grid."""
+    return result_u[(slice(0, n + 1),) * result_u.ndim]

@@ -13,8 +13,8 @@ import numpy as np
 import torch
 
 from ..config import MultigridConfig
-from .operators import (ConstStencilOp, VarStencilOp, galerkin_coarsen,
-                        galerkin_coarsen_host, poisson_op)
+from .operators import (ConstStencilOp, ConstStencilOp3D, VarStencilOp,
+                        galerkin_coarsen, galerkin_coarsen_host, poisson_op)
 
 
 def round_up(x: int, m: int) -> int:
@@ -88,16 +88,16 @@ def coarse_dense_inverse(op, dtype=torch.float32,
                          device=None) -> torch.Tensor:
     """Dense inverse of the interior operator, computed once in float64
     numpy and stored in ``dtype`` (float32 unless asked, for every solve
-    dtype, as the JAX package stores it).  The constant stencil is assembled
-    in closed form; a :class:`VarStencilOp` from its coefficient planes
-    (numpy, or tensors copied to the host)."""
-    if type(op) is ConstStencilOp:
-        inv = np.linalg.inv(dense_poisson_matrix(op.n))
-        return torch.as_tensor(inv, dtype=dtype, device=device)
+    dtype, as the JAX package stores it).  The constant 5- and 7-point
+    stencils are assembled in closed form; a :class:`VarStencilOp` from its
+    coefficient planes (numpy, or tensors copied to the host); any other
+    operator (the 19-point ``Const19Op``) is probed with unit grids through
+    its ``apply`` in float32 on the host."""
+    if type(op) in (ConstStencilOp, ConstStencilOp3D):
+        a = dense_poisson_matrix(op.n, getattr(op, "ndim", 2))
+        return torch.as_tensor(np.linalg.inv(a), dtype=dtype, device=device)
     if not isinstance(op, VarStencilOp):
-        raise NotImplementedError(
-            f"coarse_dense_inverse supports ConstStencilOp and VarStencilOp "
-            f"only, got {op!r}")
+        return _probed_inverse(op, dtype, device)
     coef = op.coef
     if isinstance(coef, torch.Tensor):
         coef = coef.cpu().numpy()
@@ -118,13 +118,34 @@ def coarse_dense_inverse(op, dtype=torch.float32,
     return torch.as_tensor(inv, dtype=dtype, device=device)
 
 
+def _probed_inverse(op, dtype, device) -> torch.Tensor:
+    """The inverse of an operator known only through ``apply``: unit grids
+    on the unknowns, applied as one float32 batch; column k of the matrix is
+    ``apply(e_k)``."""
+    inter = _unknown_slices(op)
+    shp = tuple(s.stop - s.start for s in inter)
+    m = int(np.prod(shp))
+    grids = torch.zeros((m,) + tuple(op.grid_shape), dtype=torch.float32)
+    grids[(slice(None),) + inter] = torch.eye(m).reshape((m,) + shp)
+    cols = op.apply(grids)[(slice(None),) + inter].reshape(m, m)
+    a = cols.double().numpy().T
+    return torch.as_tensor(np.linalg.inv(a), dtype=dtype, device=device)
+
+
+def _unknown_slices(op) -> tuple:
+    """Per-axis slices of the operator's unknowns: the Dirichlet interior
+    ``1..n-1`` along each of its ``ndim`` axes."""
+    return (slice(1, op.n),) * getattr(op, "ndim", 2)
+
+
 def coarse_solve(op, coarse_inv: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Direct coarsest-grid solve via the precomputed dense inverse."""
-    inter = (slice(1, op.n), slice(1, op.n))
+    inter = _unknown_slices(op)
+    shp = tuple(s.stop - s.start for s in inter)
     rhs = b[inter].reshape(-1).to(coarse_inv.dtype)
-    sol = torch.mv(coarse_inv, rhs).reshape(op.n - 1, op.n - 1).to(b.dtype)
-    out = b.new_zeros((op.S, op.S))
+    sol = torch.mv(coarse_inv, rhs).reshape(shp).to(b.dtype)
+    out = b.new_zeros(getattr(op, "grid_shape", (op.S, op.S)))
     out[inter] = sol
     return out
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import ops
+from . import ops, ops3d
 
 
 class ConstStencilOp:
@@ -49,6 +49,120 @@ class ConstStencilOp:
 
 def poisson_op(n: int, S: int) -> ConstStencilOp:
     return ConstStencilOp(n, S)
+
+
+class ConstStencilOp3D:
+    """h-independent 7-point Poisson operator on an (S, S, Sx) padded grid
+    (``Sx`` the lane-aligned x side; cubic when None).  The cycle drivers
+    dispatch the 3D transfers on ``ndim``."""
+
+    ndim = 3
+
+    def __init__(self, n: int, S: int, Sx: int = None):
+        self.n = int(n)
+        self.S = int(S)
+        self.Sx = int(Sx) if Sx is not None else int(S)
+
+    @property
+    def grid_shape(self):
+        return (self.S, self.S, self.Sx)
+
+    def apply(self, u):
+        return ops3d.apply_poisson3(u, self.n)
+
+    def residual(self, u, b):
+        return ops3d.residual3(u, b, self.n)
+
+    def smooth(self, u, b, *, smoother: str, omega, sweeps: int):
+        if smoother == "jacobi":
+            return ops3d.jacobi_sweeps3(u, b, self.n, omega, sweeps)
+        if smoother == "rbgs":
+            return ops3d.redblack_gs_sweeps3(u, b, self.n, sweeps)
+        raise ValueError(f"unknown smoother {smoother!r}")
+
+    def __repr__(self):
+        return f"ConstStencilOp3D(n={self.n}, S={self.S}, Sx={self.Sx})"
+
+
+class Const19Op:
+    """The compact 19-point Mehrstellen operator in 3D (fourth order),
+    h-independent: ``A = (1/6)(24 I - 2 faces - edges)``, for the smoothed
+    right-hand side ``h^2 (f + h^2/12 lap f)`` (``problems.poisson4_3d``).
+    Carries no array state.
+
+    ``STENCIL27[dz+1][dy+1][dx+1]`` multiplies ``u[i+dz, j+dy, k+dx]``
+    (faces -1/3, edges -1/6, corners 0): the static weights the 3D level-
+    visit kernels take (``kernels.transfer3d``)."""
+
+    ndim = 3
+    DIAG = 4.0
+    STENCIL27 = tuple(
+        tuple(tuple((4.0 if (dz, dy, dx) == (0, 0, 0) else
+                     -2.0 / 6.0 if abs(dz) + abs(dy) + abs(dx) == 1 else
+                     -1.0 / 6.0 if abs(dz) + abs(dy) + abs(dx) == 2 else
+                     0.0)
+                    for dx in (-1, 0, 1)) for dy in (-1, 0, 1))
+        for dz in (-1, 0, 1))
+
+    def __init__(self, n: int, S: int, Sx: int = None):
+        self.n = int(n)
+        self.S = int(S)
+        self.Sx = int(Sx) if Sx is not None else int(S)
+
+    @property
+    def grid_shape(self):
+        return (self.S, self.S, self.Sx)
+
+    @staticmethod
+    def _off_sum(u):
+        """(2 * faces + edges) / 6, the negated off-diagonal part."""
+        zp, zm = torch.roll(u, -1, -3), torch.roll(u, 1, -3)
+        yp, ym = torch.roll(u, -1, -2), torch.roll(u, 1, -2)
+        faces = (zp + zm + yp + ym
+                 + torch.roll(u, 1, -1) + torch.roll(u, -1, -1))
+        edges = torch.zeros_like(u)
+        for a in (zp, zm):
+            edges = (edges + torch.roll(a, 1, -2) + torch.roll(a, -1, -2)
+                     + torch.roll(a, 1, -1) + torch.roll(a, -1, -1))
+        for a in (yp, ym):
+            edges = edges + torch.roll(a, 1, -1) + torch.roll(a, -1, -1)
+        return (2.0 * faces + edges) * (1.0 / 6.0)
+
+    def apply(self, u):
+        return ops3d.mask_interior3(self.DIAG * u - self._off_sum(u), self.n)
+
+    def residual(self, u, b):
+        return ops3d.mask_interior3(b - self.DIAG * u + self._off_sum(u),
+                                    self.n)
+
+    def smooth(self, u, b, *, smoother: str, omega, sweeps: int):
+        """Jacobi with D = 4I, or the parity-masked relaxation that the JAX
+        package calls RB-GS: edges couple same-colour nodes, so each
+        half-step updates its colour from the state before it."""
+        if sweeps <= 0:
+            return u
+        m = ops3d.interior_mask3(u.shape[-3:], self.n, u.device)
+        inv_d = 1.0 / self.DIAG
+        if smoother == "jacobi":
+            ws = omega if isinstance(omega, tuple) else (omega,)
+            v = u
+            for s in range(sweeps):
+                w = ws[s % len(ws)]
+                vn = (1.0 - w) * v + (w * inv_d) * (b + self._off_sum(v))
+                v = torch.where(m, vn, 0.0)
+            return v
+        if smoother == "rbgs":
+            par = ops3d.parity3(u.shape[-3:], u.device)
+            v = u
+            for _ in range(sweeps):
+                for parity in (0, 1):
+                    vn = inv_d * (b + self._off_sum(v))
+                    v = torch.where(m & (par == parity), vn, v)
+            return v
+        raise ValueError(f"unknown smoother {smoother!r}")
+
+    def __repr__(self):
+        return f"Const19Op(n={self.n}, S={self.S}, Sx={self.Sx})"
 
 
 def _shift(u, di: int, dj: int):

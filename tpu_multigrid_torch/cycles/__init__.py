@@ -10,7 +10,11 @@ kernel-sized levels run the streaming smoothers (``kernels.stencil``,
 ``kernels.varstencil``) and the standalone transfers
 (``kernels.transfer.restrict_fw`` / ``prolong_add``), as the JAX package
 dispatches them; the rest run the plain torch operators.  The 2D constant-
-and variable-coefficient branches of ``tpu_multigrid.cycles`` are here.
+and variable-coefficient branches of ``tpu_multigrid.cycles`` are here, and
+the 3D constant-coefficient one: a 7-point or static-stencil (19-point)
+pair that passes :func:`_use_super_kernels3` is K1_3 and K2_3, other
+7-point levels run the 3D streaming smoother (``kernels.stencil3d``), and
+the 3D transfers outside K1_3/K2_3 are plain torch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ import numpy as np
 import torch
 
 from ..config import MultigridConfig
-from ..core import ops
+from ..core import ops, ops3d
 from ..core.grids import Hierarchy, coarse_solve
-from ..core.operators import ConstStencilOp, VarStencilOp
+from ..core.operators import ConstStencilOp, ConstStencilOp3D, VarStencilOp
 from ..kernels import stencil as _k
+from ..kernels import stencil3d as _k3
 from ..kernels import transfer as _t
+from ..kernels import transfer3d as _t3
 from ..kernels import varstencil as _v
 from ..kernels import vartransfer as _vt
 
@@ -63,6 +69,11 @@ def _stencil_kernel_ok(op, cfg: MultigridConfig, dtype, steps: int) -> bool:
             and _k.supported(op.S, dtype, steps))
 
 
+def _stencil3_kernel_ok(op, cfg: MultigridConfig, dtype, steps: int) -> bool:
+    return (cfg.use_kernels and isinstance(op, ConstStencilOp3D)
+            and _k3.supported3(op.grid_shape, dtype, steps))
+
+
 def _var_kernel_ok(op, cfg: MultigridConfig, dtype, sweeps: int) -> bool:
     """Whether a variable-coefficient level smooths on the var-stencil
     kernel (5 symmetric or 9 nonsymmetric planes alike)."""
@@ -84,6 +95,11 @@ def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
             return _k.jacobi_sweeps(u, b, op.n, omega, sweeps)
         if smoother == "rbgs":
             return _k.rbgs_sweeps(u, b, op.n, sweeps)
+    if _stencil3_kernel_ok(op, cfg, u.dtype, steps):
+        if smoother == "jacobi":
+            return _k3.jacobi_sweeps3(u, b, op.n, omega, sweeps)
+        if smoother == "rbgs":
+            return _k3.rbgs_sweeps3(u, b, op.n, sweeps)
     if _var_kernel_ok(op, cfg, u.dtype, sweeps):
         return _v.var_smooth(u, b, _v._flat_coef(op), op.n, sweeps, smoother,
                              omega)
@@ -93,6 +109,8 @@ def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
 def _residual(op, u, b, cfg: MultigridConfig):
     if _stencil_kernel_ok(op, cfg, u.dtype, 1):
         return _k.residual(u, b, op.n)
+    if _stencil3_kernel_ok(op, cfg, u.dtype, 1):
+        return _k3.residual3(u, b, op.n)
     return op.residual(u, b)
 
 
@@ -106,6 +124,11 @@ def _smooth_residual(op, u, b, cfg: MultigridConfig, sweeps: int):
                 return _k.jacobi_sweeps_residual(u, b, op.n, omega, sweeps)
             if smoother == "rbgs":
                 return _k.rbgs_sweeps_residual(u, b, op.n, sweeps)
+        if _stencil3_kernel_ok(op, cfg, u.dtype, steps):
+            if smoother == "jacobi":
+                return _k3.jacobi_sweeps_residual3(u, b, op.n, omega, sweeps)
+            if smoother == "rbgs":
+                return _k3.rbgs_sweeps_residual3(u, b, op.n, sweeps)
     if _var_kernel_ok(op, cfg, u.dtype, sweeps):
         return _v.var_smooth_residual(u, b, _v._flat_coef(op), op.n, sweeps,
                                       smoother, omega)
@@ -129,10 +152,22 @@ def _transfer_kernels_ok(Sf, Sc, cfg: MultigridConfig, dtype) -> bool:
 
 
 def _zeros(op, like):
-    return like.new_zeros((op.S, op.S))
+    """Zero grid of the operator's shape (2D by default)."""
+    return like.new_zeros(getattr(op, "grid_shape", (op.S, op.S)))
 
 
-def _restrict(r, nf: int, Sc: int, cfg: MultigridConfig):
+def _ndim(op) -> int:
+    return getattr(op, "ndim", 2)
+
+
+def _tshape(op):
+    """Transfer target size: the per-axis shape in 3D, S in 2D."""
+    return op.grid_shape if _ndim(op) == 3 else op.S
+
+
+def _restrict(r, nf: int, Sc, cfg: MultigridConfig, ndim: int = 2):
+    if ndim == 3:
+        return ops3d.restrict_fw3(r, nf, Sc)
     if cfg.restriction == "injection":
         return ops.restrict_injection(r, nf, Sc)
     if _transfer_kernels_ok(r.shape[-1], Sc, cfg, r.dtype):
@@ -146,8 +181,10 @@ def _prolong(e, nc: int, Sf: int, cfg: MultigridConfig):
     return ops.prolong(e, nc, Sf)
 
 
-def _prolong_add(u, e, nc: int, Sf: int, cfg: MultigridConfig):
+def _prolong_add(u, e, nc: int, Sf, cfg: MultigridConfig, ndim: int = 2):
     """u + P e (masked to the fine interior on the kernel)."""
+    if ndim == 3:
+        return u + ops3d.prolong3(e, nc, Sf)
     if (cfg.prolongation == "bilinear"
             and _transfer_kernels_ok(Sf, e.shape[-1], cfg, u.dtype)):
         return _t.prolong_add(u, e, 2 * nc)
@@ -222,13 +259,55 @@ def _fused_k2v(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
                                         cfg.nu2, smoother, omega)
 
 
+def _use_super_kernels3(op, opc, cfg: MultigridConfig, dtype) -> bool:
+    """Whether this 3D level visit runs as K1_3 + K2_3: a 7-point pair, or
+    a pair of constant compact stencils exposing ``STENCIL27`` (the
+    19-point ``Const19Op``), whose weights the kernels take."""
+    const7 = (isinstance(op, ConstStencilOp3D)
+              and isinstance(opc, ConstStencilOp3D))
+    const27 = (getattr(op, "STENCIL27", None) is not None
+               and getattr(opc, "STENCIL27", None) is not None
+               and _ndim(op) == 3)
+    if not (cfg.use_kernels and (const7 or const27)):
+        return False
+    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
+        return False
+    if cfg.effective_smooth_dtype != dtype:
+        return False
+    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
+        return False
+    mult = 2 if cfg.smoother == "rbgs" else 1
+    steps = mult * max(cfg.nu1, cfg.nu2)
+    return _t3.supported3(op.grid_shape, opc.grid_shape, steps, dtype)
+
+
+def _fused_k1_3d(op, opc, cfg: MultigridConfig, u, b):
+    smoother, omega = _sm(cfg, cfg.nu1)
+    return _t3.smooth_restrict3(u, b, op.n, opc.grid_shape, cfg.nu1,
+                                smoother, omega,
+                                stencil=getattr(op, "STENCIL27", None))
+
+
+def _fused_k2_3d(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
+    smoother, omega = _sm(cfg, cfg.nu2)
+    st = getattr(op, "STENCIL27", None)
+    if resnorm:
+        return _t3.prolong_smooth_resnorm3(u, b, ec, op.n, cfg.nu2, smoother,
+                                           omega, stencil=st)
+    return _t3.prolong_smooth3(u, b, ec, op.n, cfg.nu2, smoother, omega,
+                               stencil=st)
+
+
 def _level_visit_kernels(op, opc, cfg: MultigridConfig, dtype):
     """(K1, K2) of this level visit's fused pair, or None when it runs
-    unfused: the constant pair first, then the variable-coefficient one."""
+    unfused: the constant 2D pair first, then the variable-coefficient one,
+    then the 3D one."""
     if _use_super_kernels(op, opc, cfg, dtype):
         return _fused_k1, _fused_k2
     if _use_var_super_kernels(op, opc, cfg, dtype):
         return _fused_k1v, _fused_k2v
+    if _use_super_kernels3(op, opc, cfg, dtype):
+        return _fused_k1_3d, _fused_k2_3d
     return None
 
 
@@ -259,11 +338,11 @@ def cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
         u, rc = fused[0](op, opc, cfg, u, b)
     else:
         u, r = _smooth_residual(op, u, b, cfg, cfg.nu1)
-        rc = _restrict(r, op.n, opc.S, cfg)
+        rc = _restrict(r, op.n, _tshape(opc), cfg, _ndim(op))
     ec = _coarse_cycles(hier, cfg, rc, k + 1)
     if fused:
         return fused[1](op, cfg, u, b, ec)
-    u = _prolong_add(u, ec, opc.n, op.S, cfg)
+    u = _prolong_add(u, ec, opc.n, _tshape(op), cfg, _ndim(op))
     return _smooth(op, u, b, cfg, cfg.nu2)
 
 
@@ -305,8 +384,8 @@ def fmg_rhs_hierarchy(hier: Hierarchy, cfg: MultigridConfig, b_fine,
         return list(b_levels)
     bs = [b_fine]
     for k in range(hier.num_levels - 1):
-        bs.append(_restrict(bs[-1], hier.levels[k].n, hier.levels[k + 1].S,
-                            cfg))
+        op, opc = hier.levels[k], hier.levels[k + 1]
+        bs.append(_restrict(bs[-1], op.n, _tshape(opc), cfg, _ndim(op)))
     return bs
 
 
@@ -321,8 +400,9 @@ def fmg(hier: Hierarchy, cfg: MultigridConfig, b_fine,
         for _ in range(cfg.nu0 - 1):
             u = _coarsest_solve(hier, cfg, u, bs[kc])
     for k in range(kc - 1, -1, -1):
-        u = _prolong_add(_zeros(hier.levels[k], u), u, hier.levels[k + 1].n,
-                         hier.levels[k].S, cfg)
+        op = hier.levels[k]
+        u = _prolong_add(_zeros(op, u), u, hier.levels[k + 1].n, _tshape(op),
+                         cfg, _ndim(op))
         for _ in range(cfg.nu0):
             u = cycle(hier, cfg, u, bs[k], k)
     return u
@@ -336,7 +416,7 @@ def fmg(hier: Hierarchy, cfg: MultigridConfig, b_fine,
 class SolveResult:
     """Solution + observability.
 
-    ``u``: padded (S, S) solution grid at the finest level.
+    ``u``: padded (S, S) or (S, S, Sx) solution grid at the finest level.
     ``res_history``: float32 CPU tensor of residual L2 norms before the
     solve and after each cycle (length ``cycles + 1``; NaN-padded in
     until-tol mode).

@@ -12,7 +12,8 @@ import torch
 
 from .config import MultigridConfig
 from .core.grids import Hierarchy
-from .core.operators import VarStencilOp, poisson_op
+from .core.operators import (Const19Op, ConstStencilOp3D, VarStencilOp,
+                             poisson_op)
 from .cycles import SolveResult
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -54,6 +55,18 @@ def hierarchy_from_numpy(sizes, coarse_inv=None, device=None) -> Hierarchy:
     return Hierarchy(levels, inv)
 
 
+def hierarchy3d_from_numpy(sizes, coarse_inv=None, device=None,
+                           order: int = 2) -> Hierarchy:
+    """A 3D hierarchy from the JAX one's ``(n, S, Sx)`` level sizes: the
+    7-point operator, or the 19-point Mehrstellen one with ``order=4``; and
+    its coarse dense inverse (numpy, or None when the coarsest level is
+    smoothed)."""
+    cls = Const19Op if order == 4 else ConstStencilOp3D
+    levels = tuple(cls(n, S, Sx) for n, S, Sx in sizes)
+    inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
+    return Hierarchy(levels, inv)
+
+
 def var_hierarchy_from_numpy(levels, coarse_inv=None,
                              device=None) -> Hierarchy:
     """A variable-coefficient hierarchy from the JAX one's levels, finest
@@ -84,9 +97,9 @@ def result_to_numpy(result: SolveResult) -> dict:
 
 
 def refinement_state_to_numpy(components) -> tuple:
-    """A refinement iterate of either package, as (hi, lo) or (hi, mid, lo)
-    (torch tensors, or anything ``np.asarray`` takes), as numpy arrays in
-    the same order and dtype."""
+    """A refinement iterate of either package, 2D or 3D, as (hi, lo) or
+    (hi, mid, lo) (torch tensors, or anything ``np.asarray`` takes), as
+    numpy arrays in the same order, shape and dtype."""
     return tuple(c.detach().cpu().numpy() if isinstance(c, torch.Tensor)
                  else np.asarray(c) for c in components)
 

@@ -5,9 +5,11 @@ launches the kernel on CUDA tensors.  Nothing is built when this package is
 imported: ``_build.lib()`` compiles ``csrc/*.cu`` at the first launch.
 """
 
-from . import compres, stencil, transfer, varstencil, vartransfer
+from . import (compres, stencil, stencil3d, transfer, transfer3d, varstencil,
+               vartransfer)
 
-_MODULES = (transfer, stencil, compres, varstencil, vartransfer)
+_MODULES = (transfer, stencil, compres, varstencil, vartransfer, stencil3d,
+            transfer3d)
 
 
 def launch_counts() -> dict:

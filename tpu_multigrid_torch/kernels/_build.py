@@ -66,6 +66,19 @@ _SIGNATURES = {
     # u, b, ec, coef, u_out, partials, out_sum, S, Sc, n, steps, rbgs,
     # nplanes, weights, count, stream
     "tmt_var_prolong_smooth": ([_P] * 7 + [_I] * 6 + [_P, _I, _P], _I),
+    "tmt_stencil3d_max_steps": ([], _I),
+    "tmt_window3_max_halo": ([], _I),
+    # u, b, u_out, r_out, Sz, Sy, Sx, n, steps, first_step, rbgs, weights,
+    # count, stream
+    "tmt_streamed3": ([_P] * 4 + [_I] * 7 + [_P, _I, _P], _I),
+    # u, b, u_out, rc, Sz, Sy, Sx, Szc, Syc, Scx, n, steps, rbgs, weights,
+    # count, taps, ntaps, stream
+    "tmt_smooth_restrict3": ([_P] * 4 + [_I] * 9 + [_P, _I, _P, _I, _P], _I),
+    # Sz, Sy, Sx, steps
+    "tmt_prolong_smooth3_blocks": ([_I] * 4, _I),
+    # u, b, ec, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx, n,
+    # steps, rbgs, weights, count, taps, ntaps, stream
+    "tmt_prolong_smooth3": ([_P] * 6 + [_I] * 9 + [_P, _I, _P, _I, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -162,6 +175,8 @@ def lib() -> ctypes.CDLL:
             handle.var_tile = handle.tmt_var_tile()
             handle.var_max_halo = {p: handle.tmt_var_max_halo(p)
                                    for p in (5, 9)}
+            handle.stencil3d_max_steps = handle.tmt_stencil3d_max_steps()
+            handle.window3_max_halo = handle.tmt_window3_max_halo()
             _lib = handle
     return _lib
 

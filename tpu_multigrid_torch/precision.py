@@ -17,8 +17,9 @@ deeper residuals out of f32 storage:
 For the deepest tolerances at 16385^2 the iterate is a triple-single
 u_hi + u_mid + u_lo (:func:`solve_refined_ts`), and the inner cycle keeps
 its corrections double-single on the finest levels (:func:`cycle_ds`).
-Ported here: the 2D branch of all of it.  ``inner_dtype`` (a narrow inner
-cycle) is not ported yet.
+Ported here: the 2D and 3D branches of all of it (3D evaluates its
+compensated residuals and transfers in plain torch, as the JAX package
+does).  ``inner_dtype`` (a narrow inner cycle) is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ import numpy as np
 import torch
 
 from .config import MultigridConfig
-from .core import ops
+from .core import ops, ops3d
 from .core.grids import Hierarchy
-from .cycles import (SolveResult, _coarsest_solve, _restrict, _smooth,
-                     _smooth_residual, cycle)
+from .cycles import (SolveResult, _coarsest_solve, _ndim, _restrict, _smooth,
+                     _smooth_residual, _tshape, _zeros, cycle)
 from .kernels import compres
 from .kernels import transfer as _t
 
@@ -60,10 +61,10 @@ def ds_add(hi, lo, y):
 
 
 def _neighbor_sum_compensated(u):
-    """Sum of the four shifted copies of u with Neumaier compensation:
-    (s, c) with s + c == the exact sum to ~eps^2."""
-    terms = [torch.roll(u, 1, -2), torch.roll(u, -1, -2),
-             torch.roll(u, 1, -1), torch.roll(u, -1, -1)]
+    """Sum of the 2·ndim shifted copies of u (z, y, x in 3D) with Neumaier
+    compensation: (s, c) with s + c == the exact sum to ~eps^2."""
+    axes = (-3, -2, -1) if u.ndim == 3 else (-2, -1)
+    terms = [torch.roll(u, d, ax) for ax in axes for d in (1, -1)]
     s = terms[0]
     c = torch.zeros_like(u)
     for t in terms[1:]:
@@ -72,13 +73,34 @@ def _neighbor_sum_compensated(u):
     return s, c
 
 
+def _mask_nd(r, n):
+    if r.ndim == 3:
+        return ops3d.mask_interior3(r, n)
+    return ops.mask_interior(r, n)
+
+
+def _nbr_nd(u):
+    return ops3d.neighbor_sum3(u) if u.ndim == 3 else ops.neighbor_sum(u)
+
+
+def _diag_terms(u) -> list:
+    """-(diag * u) as exact products: [-4u] in 2D, [-4u, -2u] in 3D (6u
+    itself rounds; 4u and 2u are exponent shifts)."""
+    if u.ndim == 3:
+        return [-4.0 * u, -2.0 * u]
+    return [-4.0 * u]
+
+
 def _ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo):
-    """The ds-residual TwoSum cascade: r = b + nbr_hi - 4 u_hi (the large,
-    cancelling terms, exactly), then the small corrections."""
+    """The ds-residual TwoSum cascade: r = b + nbr_hi - diag u_hi (the
+    large, cancelling terms, exactly), then the small corrections."""
     s, e1 = _two_sum(b, nbr_hi)
-    s, e2 = _two_sum(s, -4.0 * u_hi)
+    errs = [e1]
+    for t in _diag_terms(u_hi):
+        s, e = _two_sum(s, t)
+        errs.append(e)
     cs = []
-    for t in (e1, e2, nbr_c, -a_lo):
+    for t in errs + [nbr_c, -a_lo]:
         s, c = _two_sum(s, t)
         cs.append(c)
     tail = cs[-1]
@@ -89,20 +111,27 @@ def _ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo):
 
 def ds_residual(b, u_hi, u_lo, n: int):
     """r = b - A(u_hi + u_lo) with ~eps^2 accuracy, masked to the interior
-    (the plain version of ``kernels.compres.ds_residual``)."""
+    (2D: the plain version of ``kernels.compres.ds_residual``); 2D or 3D
+    by ``b.ndim``."""
     nbr_hi, nbr_c = _neighbor_sum_compensated(u_hi)
-    a_lo = 4.0 * u_lo - ops.neighbor_sum(u_lo)
-    return ops.mask_interior(_ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo), n)
+    a_lo = 2.0 * b.ndim * u_lo - _nbr_nd(u_lo)
+    return _mask_nd(_ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo), n)
 
 
 def _ts_cascade(b, u_hi, u_mid, nbr_h, c_h, nbr_m, c_m, a_l):
     """The ts-residual TwoSum cascade (see :func:`_ds_cascade`)."""
     s, e1 = _two_sum(b, nbr_h)
-    s, e2 = _two_sum(s, -4.0 * u_hi)
-    s, e3 = _two_sum(s, nbr_m)
-    s, e4 = _two_sum(s, -4.0 * u_mid)
+    errs = [e1]
+    for t in _diag_terms(u_hi):
+        s, e = _two_sum(s, t)
+        errs.append(e)
+    s, e = _two_sum(s, nbr_m)
+    errs.append(e)
+    for t in _diag_terms(u_mid):
+        s, e = _two_sum(s, t)
+        errs.append(e)
     cs = []
-    for t in (e1, e2, e3, e4, c_h, c_m, -a_l):
+    for t in errs + [c_h, c_m, -a_l]:
         s, c = _two_sum(s, t)
         cs.append(c)
     tail = cs[-1]
@@ -113,23 +142,27 @@ def _ts_cascade(b, u_hi, u_mid, nbr_h, c_h, nbr_m, c_m, a_l):
 
 def ts_residual(b, u_hi, u_mid, u_lo, n: int):
     """r = b - A(u_hi + u_mid + u_lo) to ~eps^3, masked to the interior
-    (the plain version of ``kernels.compres.ts_residual``)."""
+    (2D: the plain version of ``kernels.compres.ts_residual``); 2D or 3D by
+    ``b.ndim``."""
     nbr_h, c_h = _neighbor_sum_compensated(u_hi)
     nbr_m, c_m = _neighbor_sum_compensated(u_mid)
-    a_l = 4.0 * u_lo - ops.neighbor_sum(u_lo)
+    a_l = 2.0 * b.ndim * u_lo - _nbr_nd(u_lo)
     r = _ts_cascade(b, u_hi, u_mid, nbr_h, c_h, nbr_m, c_m, a_l)
-    return ops.mask_interior(r, n)
+    return _mask_nd(r, n)
 
 
 def _ds_residual_d(b, u_hi, u_lo, n, use_kernels):
-    """ds_residual, through the kernel when the grid qualifies."""
-    if use_kernels and compres.supported(b.shape[-1], b.dtype):
+    """ds_residual, through the kernel when the grid is 2D and qualifies
+    (the kernel is 2D only: a 3D grid's last side must not reach it)."""
+    if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
+                                                         b.dtype):
         return compres.ds_residual(b, u_hi, u_lo, n)
     return ds_residual(b, u_hi, u_lo, n)
 
 
 def _ts_residual_d(b, u_hi, u_mid, u_lo, n, use_kernels):
-    if use_kernels and compres.supported(b.shape[-1], b.dtype):
+    if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
+                                                         b.dtype):
         return compres.ts_residual(b, u_hi, u_mid, u_lo, n)
     return ts_residual(b, u_hi, u_mid, u_lo, n)
 
@@ -164,6 +197,48 @@ def prolong_comp(ec, nc: int, Sf: int):
     return ops.mask_interior(hi, 2 * nc), ops.mask_interior(err, 2 * nc)
 
 
+def prolong_comp3(ec, nc: int, shape_f):
+    """Trilinear prolongation with an exact error term: P ec == hi + err.
+
+    The 3D analogue of :func:`prolong_comp`: each parity phase sums its 1,
+    2, 4 or 8 coarse corners (z-shifted copies first, then y, then x) in a
+    TwoSum cascade and scales by the exact 1/count; ``err`` is the scaled
+    sum of the cascade's errors, added up as the JAX package adds them."""
+    shf = ops3d._shape3(shape_f)
+    m = tuple(min(ec.shape[ax], (shf[ax] + 1) // 2) for ax in range(3))
+    e = ec[:m[0], :m[1], :m[2]]
+
+    def shifted(v, ax):
+        return ops3d._pad_end(v.narrow(ax, 1, v.shape[ax] - 1), ax)
+
+    hi = ec.new_zeros(tuple(2 * x for x in m))
+    err = torch.zeros_like(hi)
+    for pz in (0, 1):
+        for py in (0, 1):
+            for px in (0, 1):
+                terms = [e]
+                for ax, p in ((0, pz), (1, py), (2, px)):
+                    if p:
+                        terms = terms + [shifted(t, ax) for t in terms]
+                s = terms[0]
+                errs = []
+                for t in terms[1:]:
+                    s, t2 = _two_sum(s, t)
+                    errs.append(t2)
+                scale = 1.0 / len(terms)
+                sl = (slice(pz, None, 2), slice(py, None, 2),
+                      slice(px, None, 2))
+                hi[sl] = scale * s
+                if errs:
+                    acc = 0 + errs[0]
+                    for t2 in errs[1:]:
+                        acc = acc + t2
+                    err[sl] = scale * acc
+    nf = 2 * nc
+    return (ops3d.mask_interior3(ops3d._crop_pad3(hi, shf), nf),
+            ops3d.mask_interior3(ops3d._crop_pad3(err, shf), nf))
+
+
 def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
              ds_levels: int = 3):
     """One V-cycle on the defect equation A e = r, returning e as a
@@ -176,8 +251,6 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
     the accumulated pair.  Below them the plain cycle runs.  Only the
     V-cycle shape, as in the JAX package.
     """
-    if r.ndim != 2:
-        raise NotImplementedError("cycle_ds: the 3D branch is not ported yet")
     op = hier.levels[k]
     if k >= ds_levels or k == hier.num_levels - 1:
         if k == hier.num_levels - 1:
@@ -187,12 +260,17 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
         return e, torch.zeros_like(e)
 
     opc = hier.levels[k + 1]
+    ndim = _ndim(op)
     e0, r1 = _smooth_residual(op, torch.zeros_like(r), r, cfg, cfg.nu1)
-    rc = _restrict(r1, op.n, opc.S, cfg)
+    rc = _restrict(r1, op.n, _tshape(opc), cfg, ndim)
     ec_hi, ec_lo = cycle_ds(hier, cfg, rc, k + 1, ds_levels)
-    if cfg.use_kernels and _t.supported(op.S, opc.S, 0, r.dtype):
+    if (cfg.use_kernels and ndim == 2
+            and _t.supported(op.S, opc.S, 0, r.dtype)):
         p_hi, p_err = _t.prolong_comp(ec_hi, op.n, op.S)
         p_lo = _t.prolong_add(p_err, ec_lo, op.n)
+    elif ndim == 3:
+        p_hi, p_err = prolong_comp3(ec_hi, opc.n, op.grid_shape)
+        p_lo = ops3d.prolong3(ec_lo, opc.n, op.grid_shape) + p_err
     else:
         p_hi, p_err = prolong_comp(ec_hi, opc.n, op.S)
         p_lo = ops.prolong(ec_lo, opc.n, op.S) + p_err
@@ -277,7 +355,7 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
     """
     _check_modes(tol, num_cycles)
     op = hier.levels[0]
-    u_hi = b.new_zeros((op.S, op.S))
+    u_hi = _zeros(op, b)
     u_mid = torch.zeros_like(u_hi)
     u_lo = torch.zeros_like(u_hi)
     r = b
@@ -342,7 +420,7 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
                 else torch.zeros_like(u_hi))
         r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
     else:
-        u_hi = b.new_zeros((op.S, op.S))
+        u_hi = _zeros(op, b)
         u_lo = torch.zeros_like(u_hi)
         r = b
     loop = _RefinementLoop(ops.norm2(r).item(), tol, stall_factor,

@@ -1,7 +1,10 @@
 from .diffusion import DiffusionProblem, cell_coefficients
 from .helmholtz import HelmholtzProblem, helmholtz_op_host
 from .poisson import PoissonProblem, boundary_grid, poisson_rhs
+from .poisson3d import Poisson3DProblem, boundary_grid3, poisson3d_rhs
+from .poisson4_3d import Poisson4_3DProblem, mehrstellen_rhs3
 
 __all__ = ["PoissonProblem", "DiffusionProblem", "HelmholtzProblem",
-           "boundary_grid", "poisson_rhs", "cell_coefficients",
-           "helmholtz_op_host"]
+           "Poisson3DProblem", "Poisson4_3DProblem", "boundary_grid",
+           "poisson_rhs", "boundary_grid3", "poisson3d_rhs",
+           "mehrstellen_rhs3", "cell_coefficients", "helmholtz_op_host"]
