@@ -103,6 +103,7 @@ _VS = "tpu_multigrid/kernels/varstencil.py:149"
 _VT = "tpu_multigrid/kernels/vartransfer.py"
 _S3 = "tpu_multigrid/kernels/stencil3d.py:240"
 _T3 = "tpu_multigrid/kernels/transfer3d.py"
+_VT3 = "tpu_multigrid/kernels/vartransfer3d.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -130,10 +131,15 @@ REPLACES = {
     "smooth_restrict3": f"{_T3}:279",
     "prolong_smooth3": f"{_T3}:501",
     "prolong_smooth_resnorm3": f"{_T3}:501",
+    "var_smooth_restrict3": f"{_VT3}:214",
+    "var_prolong_smooth3": f"{_VT3}:385",
+    "var_prolong_smooth_resnorm3": f"{_VT3}:385",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
+                          else "vartransfer3d.cu" if REPLACES[name]
+                          .startswith(_VT3)
                           else "stencil3d.cu" if REPLACES[name] == _S3
                           else "transfer3d.cu" if REPLACES[name].startswith(
                               _T3)
@@ -891,6 +897,15 @@ PAIRS3 = [((528, 528, 640), (272, 272, 384), 512),
 # the 513^3 solve smooths on it (6, 5, 4).
 SMOOTH3 = [((528, 528, 640), 512), ((80, 80, 128), 64), ((48, 48, 128), 32),
            ((32, 32, 128), 16)]
+# (smoother, omega, sweeps) deeper than one K1_3 window: RB-GS (5, 5) and
+# Chebyshev 10 split K1_3, RB-GS 6 and Chebyshev 14 split K2_3 as well.
+DEEP3 = [("rbgs", 5), ("jacobi", 10), ("rbgs", 6), ("jacobi", 14)]
+
+
+def deep_omega(sm, sweeps):
+    """The weights of a DEEP3 entry: Chebyshev's for Jacobi."""
+    from tpu_multigrid_torch.core import ops
+    return ops.chebyshev_omegas(sweeps, 0.4) if sm == "jacobi" else 1.0
 
 
 def interior_randn3(shape, n, gen, scale=1.0):
@@ -970,6 +985,43 @@ def phase_kernels3d(errs):
         print(f"[kernels3d] {shape} / {shape_c} n={n}: K1_3, K2_3, "
               f"K2_3-resnorm (Chebyshev 3/2, RB-GS 1; 7-point and 19-point) "
               f"bitwise equal; resnorm norm rel {max(rels):.3g}")
+        del u, b, ec
+        torch.cuda.empty_cache()
+    # Depths whose halo outgrows the window, split into launches with the
+    # step index carried: RB-GS (5, 5) and Chebyshev 10 split K1_3, RB-GS 6
+    # and Chebyshev 14 K2_3 too.
+    from tpu_multigrid_torch import kernels
+    for shape, shape_c, n in (PAIRS3[0], PAIRS3[2]):
+        u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
+        ec = interior_randn3(shape_c, n // 2, gen)
+        rels, plans = [], set()
+        for st in (None, Const19Op.STENCIL27):
+            for sm, sweeps in DEEP3:
+                om = deep_omega(sm, sweeps)
+                kernels.reset_launch_counts()
+                for g, w in zip(
+                        T3.smooth_restrict3(u, b, n, shape_c, sweeps, sm, om,
+                                            st),
+                        T3.smooth_restrict3_plain(u, b, n, shape_c, sweeps,
+                                                  sm, om, st)):
+                    track(errs, "smooth_restrict3", g, w)
+                a = (u, b, ec, n, sweeps, sm, om, st)
+                track(errs, "prolong_smooth3", T3.prolong_smooth3(*a),
+                      T3.prolong_smooth3_plain(*a))
+                ku, knorm = T3.prolong_smooth_resnorm3(*a)
+                pu, pnorm = T3.prolong_smooth_resnorm3_plain(*a)
+                track(errs, "prolong_smooth_resnorm3", ku, pu)
+                rels.append(track_norm(errs, "prolong_smooth_resnorm3",
+                                       knorm, pnorm))
+                c = kernels.launch_counts()
+                plans.add((sm, sweeps, c["smooth_restrict3"],
+                           c["prolong_smooth3"], c["prolong_smooth_resnorm3"]))
+                del ku, pu
+        print(f"[kernels3d] deep: {shape} / {shape_c} n={n}: K1_3, K2_3, "
+              f"K2_3-resnorm at RB-GS 5 and 6, Chebyshev 10 and 14 (7- and "
+              f"19-point) bitwise equal, split as (smoother, sweeps, K1_3, "
+              f"K2_3, K2_3-resnorm launches) {sorted(plans)}; resnorm norm "
+              f"rel {max(rels):.3g}")
         del u, b, ec
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1176,6 +1228,376 @@ def phase_slice3d():
           f"scipy sparse float64 direct solve: rel err {err:.3e}; f64 "
           f"residual {rel5:.3e}; launches {nonzero(got)}")
     check(out5[4] and err <= 1e-7, f"level-5 refined rel err {err}")
+
+    # 7. RB-GS (5, 5) at level 7: 10 half-steps, deeper than one K1_3
+    # window (10 + 2 layers): K1_3 runs in two launches, the streaming
+    # smoother on levels 6-4 in launches of its own step limit.
+    from tpu_multigrid_torch.kernels import _build, stencil, transfer3d
+    lib = _build.lib()
+    deep = config3(True, 7, smoother="rbgs", nu1=5, nu2=5)
+    r7 = drive("rbgs55-3d-7", lambda: tmg.solve_poisson3d(
+        7, config=deep, num_cycles=3, device=DEVICE))
+    got = PATH_COUNTS["rbgs55-3d-7"]
+    per = len(stencil.launch_plan(10, lib.stencil3d_max_steps, (1.0,)))
+    want = expect(
+        smooth_restrict3=3 * len(transfer3d.split_plan(
+            10, 2, lib.window3_max_halo, (1.0,))),
+        prolong_smooth_resnorm3=3 * len(transfer3d.split_plan(
+            10, 1, lib.window3_max_halo, (1.0,))),
+        rbgs_sweeps_residual3=9 * per, rbgs_sweeps3=9 * per)
+    check(got == want, f"RB-GS (5, 5) 3D launches {got}, expected {want}")
+    r7p = tmg.solve_poisson3d(7, config=dataclasses.replace(
+        deep, use_kernels=False), num_cycles=3, device=DEVICE)
+    h7, h7p = r7.res_history.numpy(), r7p.res_history.numpy()
+    print(f"[slice3d] solve_poisson3d(7), RB-GS (5, 5), 3 cycles: kernels "
+          f"{hist_str(r7)} plain {hist_str(r7p)}; launches {nonzero(got)}")
+    check(np.allclose(h7[:3], h7p[:3], rtol=1e-3, atol=0)
+          and np.isfinite(h7).all() and h7[2] < 1e-2 * h7[0],
+          "RB-GS (5, 5) 3D histories differ beyond rtol 1e-3 or stall")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# 4g. The 3D variable-coefficient slice
+# ---------------------------------------------------------------------------
+
+VAR3_LEVEL = 9
+CONV3_LEVEL = 8
+
+
+def var3_coefficient(x, y, z):
+    """benchmarks/bench_var3.py's coefficient, a = 1 + x + 2y + z."""
+    return 1.0 + x + 2.0 * y + z
+
+
+def var3_shift(x, y, z):
+    return 100.0 * (1.0 + x * y * z)
+
+
+# benchmarks/bench_dir3.py's recirculating winds, on torch tensors.
+WINDS3 = dict(bx=lambda x, y, z: torch.sin(2 * np.pi * x) * (0.5 + z),
+              by=lambda x, y, z: torch.cos(2 * np.pi * y) - 0.3,
+              bz=lambda x, y, z: x - y)
+
+
+def var3_config(use_kernels, level=None, **kw):
+    """bench_var3.py's schedule: Chebyshev (3, 2), coarsest level 3, at
+    ``VAR3_LEVEL`` unless another level is given."""
+    return config3(use_kernels, VAR3_LEVEL if level is None else level, **kw)
+
+
+def conv3_config(use_kernels):
+    """bench_dir3.py's schedule: RB-GS (2, 2), coarsest level 3."""
+    return config3(use_kernels, CONV3_LEVEL, smoother="rbgs", nu1=2, nu2=2)
+
+
+class HostSetup:
+    """Times every call of a module's hierarchy builder while in use (the
+    host part of a front door's set-up)."""
+
+    def __init__(self, module, name):
+        import importlib
+        self.module = importlib.import_module(module)
+        self.name, self.seconds = name, 0.0
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def diffusion3d_setup():
+    return HostSetup("tpu_multigrid_torch.problems.diffusion3d",
+                     "build_diffusion3d_hierarchy")
+
+
+def convection3d_setup():
+    return HostSetup("tpu_multigrid_torch.problems.convection3d",
+                     "build_convection3d_hierarchy")
+
+
+def var3_setup():
+    """The 513^3 diffusion hierarchy, built once on the host and uploaded;
+    shared by the kernel checks, the plain path, the fixed cycles and the
+    times.  (problem, host seconds, seconds with the upload)."""
+    import tpu_multigrid_torch as tmg
+    with diffusion3d_setup() as host:
+        t0 = time.perf_counter()
+        prob = tmg.Diffusion3DProblem(var3_config(True),
+                                      coefficient=var3_coefficient,
+                                      device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    print(f"[var3d] set-up of the {2 ** VAR3_LEVEL + 1}^3 hierarchy: host "
+          f"build {host.seconds:.3f} s, with the upload {secs:.3f} s; levels "
+          f"{[op.grid_shape for op in prob.hierarchy.levels]}")
+    return prob, host.seconds, secs
+
+
+def seeded_planes3(nplanes, shape, gen):
+    """Positive coefficient planes in [0.5, 1.5) from a seed."""
+    return 0.5 + torch.rand((nplanes,) + tuple(shape), generator=gen,
+                            device=DEVICE)
+
+
+def phase_var_kernels3d(errs, prob):
+    """K1v_3, K2v_3 and K2v_3-resnorm against their plain versions at every
+    pair the 513^3 solve fuses (9 -> 8, 8 -> 7, 7 -> 6), on the hierarchy's
+    own 3 planes and on seeded 4 and 6 planes, Chebyshev (3, 2) and RB-GS
+    (1, 1); then depths past one window (Chebyshev 14, RB-GS 6) at 7 -> 6:
+    bitwise, the resnorm's norm to 1e-4."""
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    om3, om2 = ops.chebyshev_omegas(3, 0.4), ops.chebyshev_omegas(2, 0.4)
+    levels = prob.hierarchy.levels
+    for k, (shape, shape_c, n) in enumerate(PAIRS3[:3]):
+        check(levels[k].grid_shape == shape, f"level {k} is "
+              f"{levels[k].grid_shape}, expected {shape}")
+        u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
+        ec = interior_randn3(shape_c, n // 2, gen)
+        depths = [("jacobi", om3, 3, om2, 2), ("rbgs", 1.0, 1, 1.0, 1)]
+        if k == 2:
+            om14 = ops.chebyshev_omegas(14, 0.4)
+            depths += [("jacobi", om14, 14, om14, 14),
+                       ("rbgs", 1.0, 6, 1.0, 6)]
+        rels = []
+        for nplanes in (3, 4, 6):
+            coef = (levels[k].coef_stack if nplanes == 3
+                    else seeded_planes3(nplanes, shape, gen))
+            for sm, o1, s1, o2, s2 in depths:
+                for g, w in zip(
+                        VT3.var_smooth_restrict3(u, b, coef, n, shape_c, s1,
+                                                 sm, o1),
+                        VT3.var_smooth_restrict3_plain(u, b, coef, n,
+                                                       shape_c, s1, sm, o1)):
+                    track(errs, "var_smooth_restrict3", g, w)
+                a = (u, b, ec, coef, n, s2, sm, o2)
+                track(errs, "var_prolong_smooth3", VT3.var_prolong_smooth3(*a),
+                      VT3.var_prolong_smooth3_plain(*a))
+                ku, knorm = VT3.var_prolong_smooth_resnorm3(*a)
+                pu, pnorm = VT3.var_prolong_smooth_resnorm3_plain(*a)
+                track(errs, "var_prolong_smooth_resnorm3", ku, pu)
+                rels.append(track_norm(errs, "var_prolong_smooth_resnorm3",
+                                       knorm, pnorm))
+                del ku, pu
+            del coef
+            torch.cuda.empty_cache()
+        print(f"[var-kernels3d] {shape} / {shape_c} n={n}: K1v_3, K2v_3, "
+              f"K2v_3-resnorm on 3 (the hierarchy's), 4 and 6 planes, "
+              f"Chebyshev 3/2 and RB-GS 1"
+              f"{', Chebyshev 14 and RB-GS 6' if k == 2 else ''} bitwise "
+              f"equal; resnorm norm rel {max(rels):.3g}")
+        del u, b, ec
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def var3_counts(cycles, level=None):
+    """Launches of ``cycles`` cycles of the fused 3D var path of a level-
+    ``level`` solve (``VAR3_LEVEL`` by default): K1v_3 on each pair whose
+    fine level has Sx >= 256 (levels 7 and up), K2v_3 on each of those but
+    the finest, whose K2v_3 fuses the residual norm."""
+    pairs = (VAR3_LEVEL if level is None else level) - 6
+    return expect(var_smooth_restrict3=cycles * pairs,
+                  var_prolong_smooth3=cycles * (pairs - 1),
+                  var_prolong_smooth_resnorm3=cycles)
+
+
+def front_door3(path, fn, setup):
+    """One front-door call on its path with launch counts set to 0 just
+    before it: (result, seconds with set-up, host set-up seconds, peak
+    device bytes above what was allocated before the call)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with setup as host:
+        t0 = time.perf_counter()
+        res = drive(path, fn)
+        secs = time.perf_counter() - t0
+    return (res, secs, host.seconds,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def run_line(label, res, secs, host, peak):
+    print(f"[var3d] {label}: {var_state(res)} after {res.iterations} "
+          f"iterations, history {hist_str(res)}; seconds for one call "
+          f"{secs:.3f} (host set-up {host:.3f}); peak device memory of the "
+          f"call {peak / 2 ** 30:.2f} GiB")
+    return {"iterations": res.iterations, "state": var_state(res),
+            "seconds": secs, "host_setup_seconds": host,
+            "peak_gib": peak / 2 ** 30}
+
+
+def flux_matrix3(op):
+    """The interior matrix of a float64 flux-stencil operator on the card,
+    as a scipy CSC matrix in row-major interior order."""
+    import scipy.sparse as sp
+    n, m = op.n, op.n - 1
+    inner = (slice(1, n),) * 3
+    idx = np.arange(m ** 3).reshape(m, m, m)
+    diag = op._diag(torch.float64)[inner].cpu().numpy()
+    rows, cols, vals = [idx.ravel()], [idx.ravel()], [diag.ravel()]
+    for ax, plus, minus in zip(range(3), (op.tz, op.ty, op.tx), op._tm()):
+        for sign, plane in ((1, plus), (-1, minus)):
+            src, dst = [slice(None)] * 3, [slice(None)] * 3
+            src[ax] = slice(0, m - 1) if sign == 1 else slice(1, m)
+            dst[ax] = slice(1, m) if sign == 1 else slice(0, m - 1)
+            w = plane[inner].cpu().numpy()[tuple(src)]
+            rows.append(idx[tuple(src)].ravel())
+            cols.append(idx[tuple(dst)].ravel())
+            vals.append(-w.ravel())
+    return sp.csc_matrix((np.concatenate(vals),
+                          (np.concatenate(rows), np.concatenate(cols))))
+
+
+def phase_slice_var3(prob, host_secs, setup_secs):
+    """The 3D variable-coefficient slice, each path with launch counts set
+    to 0 just before it and checked exactly after."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import kernels
+    n9 = 2 ** VAR3_LEVEL
+    hier = prob.hierarchy
+    summary = {}
+
+    # 1. The front door at 513^3 on the kernels (its own set-up), and the
+    # plain path over the shared hierarchy.
+    res, secs, host, peak = front_door3("diffusion3d-9", lambda: (
+        tmg.solve_diffusion3d(VAR3_LEVEL, coefficient=var3_coefficient,
+                              config=var3_config(True), device=DEVICE)),
+        diffusion3d_setup())
+    it = res.iterations
+    got = PATH_COUNTS["diffusion3d-9"]
+    check(got == var3_counts(it), f"solve_diffusion3d({VAR3_LEVEL}) "
+          f"launches {got}, expected {var3_counts(it)}")
+    check(tuple(res.u.shape) == PAIRS3[0][0]
+          and bool(torch.isfinite(res.u).all())
+          and (res.converged or res.stalled),
+          f"solve_diffusion3d: shape {tuple(res.u.shape)}, {var_state(res)}")
+    summary["kernels"] = run_line(
+        f"solve_diffusion3d({VAR3_LEVEL}), a = 1 + x + 2y + z, kernels", res,
+        secs, host, peak)
+    print(f"[var3d] launches {nonzero(got)}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rp = tmg.solve_until_tol(hier, var3_config(False), prob.rhs(), tol=1e-8)
+    torch.cuda.synchronize()
+    secs_p = time.perf_counter() - t0
+    check(set(kernels.launch_counts().values()) == {0},
+          "the plain 3D var path launched kernels")
+    summary["plain"] = run_line(
+        "plain path on the shared hierarchy (set-up: the shared build, "
+        "peak: the solve alone)", rp, setup_secs + secs_p, host_secs,
+        torch.cuda.max_memory_allocated() - base)
+    check(abs(rp.iterations - it) <= 1 and (rp.converged or rp.stalled)
+          and float(rp.res_history[0]) == float(res.res_history[0]),
+          f"plain 3D var path: {var_state(rp)} in {rp.iterations}, kernels "
+          f"{it}")
+    du = float((res.u - rp.u).abs().max()) / float(rp.u.abs().max())
+    print(f"[var3d] max |u_kernels - u_plain| / max|u_plain| = {du:.3e}")
+    del res, rp
+    torch.cuda.empty_cache()
+
+    # 2. 10 fixed cycles from a seeded random right-hand side.
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(10)
+    br = interior_randn3(PAIRS3[0][0], n9, gen)
+    fk = drive("diffusion3d-9-fixed", lambda: tmg.solve_fixed(
+        hier, var3_config(True), br, 10))
+    got = PATH_COUNTS["diffusion3d-9-fixed"]
+    check(got == var3_counts(10), f"fixed-cycle 3D var launches {got}, "
+          f"expected {var3_counts(10)}")
+    fp = tmg.solve_fixed(hier, var3_config(False), br, 10)
+    hk, hp = fk.res_history.numpy(), fp.res_history.numpy()
+    print(f"[var3d] 10 fixed cycles, random rhs: kernels {hist_str(fk)}; "
+          f"plain {hist_str(fp)}")
+    check(np.allclose(hk[:4], hp[:4], rtol=1e-3, atol=0)
+          and np.isfinite(hk).all() and hk[3] < 1e-2 * hk[0],
+          "random-rhs 3D var histories differ beyond rtol 1e-3 or stall")
+    del fk, fp, br
+    torch.cuda.empty_cache()
+
+    # 3. The reaction term, re-discretized on every level (4 planes), each
+    # path through the front door with its own set-up.
+    runs = {}
+    for use in (True, False):
+        path = "diffusion3d-9-shift" + ("" if use else "-plain")
+        runs[use] = front_door3(path, lambda: tmg.solve_diffusion3d(
+            VAR3_LEVEL, coefficient=var3_coefficient, shift=var3_shift,
+            config=var3_config(use), device=DEVICE), diffusion3d_setup())
+        r = runs[use][0]
+        got = PATH_COUNTS[path]
+        want = var3_counts(r.iterations) if use else expect()
+        check(got == want, f"{path} launches {got}, expected {want}")
+        check(bool(torch.isfinite(r.u).all()) and (r.converged or r.stalled),
+              f"{path}: {var_state(r)}")
+        summary["shift_" + ("kernels" if use else "plain")] = run_line(
+            f"shift = 100 (1 + xyz), {'kernels' if use else 'plain'}",
+            *runs[use])
+    check(abs(runs[True][0].iterations - runs[False][0].iterations) <= 1,
+          "shifted 3D solve: iterations differ by more than 1")
+    del runs
+    torch.cuda.empty_cache()
+
+    # 4. Variable winds at 257^3 (6 planes), the front door on each path;
+    # K1v_3 / K2v_3 take the pairs 8 -> 7 and 7 -> 6.
+    runs = {}
+    for use in (True, False):
+        path = "convection3d-8" + ("" if use else "-plain")
+        runs[use] = front_door3(path, lambda: (
+            tmg.solve_convection_diffusion3d(
+                CONV3_LEVEL, eps=0.01, **WINDS3, config=conv3_config(use),
+                device=DEVICE)), convection3d_setup())
+        r = runs[use][0]
+        got = PATH_COUNTS[path]
+        want = var3_counts(r.iterations, CONV3_LEVEL) if use else expect()
+        check(got == want, f"{path} launches {got}, expected {want}")
+        check(bool(torch.isfinite(r.u).all()) and (r.converged or r.stalled),
+              f"{path}: {var_state(r)}")
+        summary["convection_" + ("kernels" if use else "plain")] = run_line(
+            f"solve_convection_diffusion3d({CONV3_LEVEL}), eps 0.01, "
+            f"variable winds, RB-GS (2, 2), "
+            f"{'kernels' if use else 'plain'}", *runs[use])
+    check(abs(runs[True][0].iterations - runs[False][0].iterations) <= 1,
+          "3D convection: iterations differ by more than 1")
+    del runs
+    torch.cuda.empty_cache()
+
+    # 5. Level 5 in float64 (no kernel takes f64) against scipy's sparse
+    # direct solve of the same flux system.
+    import scipy.sparse.linalg as spl
+    c5 = var3_config(False, 5, dtype=torch.float64)
+    run5 = front_door3("diffusion3d-5-f64", lambda: tmg.solve_diffusion3d(
+        5, coefficient=var3_coefficient, config=c5, tol=1e-10,
+        device=DEVICE), diffusion3d_setup())
+    r5 = run5[0]
+    check(PATH_COUNTS["diffusion3d-5-f64"] == expect(),
+          "the float64 level-5 solve launched kernels")
+    summary["level5_f64"] = run_line("level 5, float64, tol 1e-10", *run5)
+    p5 = tmg.Diffusion3DProblem(c5, coefficient=var3_coefficient,
+                                device=DEVICE)
+    inner = (slice(1, 32),) * 3
+    ref = spl.spsolve(flux_matrix3(p5.finest),
+                      p5.rhs()[inner].cpu().reshape(-1).numpy())
+    err = float(np.abs(r5.u[inner].cpu().reshape(-1).numpy() - ref).max()
+                / np.abs(ref).max())
+    print(f"[var3d] level 5, float64: vs scipy sparse direct solve: rel "
+          f"err {err:.3e}")
+    check(r5.converged and err <= 1e-8, f"level-5 3D var rel err {err}")
+    summary["level5_f64_rel_err"] = err
     return summary
 
 
@@ -1281,6 +1703,98 @@ def times3d(card, times, work):
     torch.cuda.empty_cache()
 
 
+# Float32 operations per node, counted from vartransfer3d.cu: the diagonal
+# (5 adds, 6 with c2), the off-diagonal sum (6 multiplies, 5 adds), 1/diag,
+# and a Jacobi step's 5 more; an RB-GS half-step's 2 more on half the nodes;
+# the residual's 3 more.
+VDIAG3, VOFF3 = 5, 11
+VJAC3 = VDIAG3 + VOFF3 + 1 + 5
+VHALF3 = (VDIAG3 + VOFF3 + 1 + 2) / 2
+VRES3 = VDIAG3 + VOFF3 + 3
+
+
+def var3_work(shape, shape_c, n, nplanes, sm, s1, s2):
+    """(bytes, operations) of K1v_3, K2v_3 and K2v_3-resnorm, by the rows
+    8-10 rule: u over its (n+1)^3 reach (in full for RB-GS, which keeps u
+    outside the interior; the interior for K2v_3, which masks u + P e_c
+    first), b over the interior, each coefficient plane over the reach, e_c
+    over (n/2+1)^3, outputs in full."""
+    cells = shape[0] * shape[1] * shape[2]
+    ccells = shape_c[0] * shape_c[1] * shape_c[2]
+    reach, inner = (n + 1) ** 3, (n - 1) ** 3
+    creach, cinner = (n // 2 + 1) ** 3, (n // 2 - 1) ** 3
+    u1 = cells if sm == "rbgs" else reach
+    extra = 1 if nplanes == 4 else 0
+    step = ((VJAC3 + extra) if sm == "jacobi" else 2 * (VHALF3 + extra / 2))
+    res = VRES3 + extra
+    k1 = (4 * (u1 + inner + nplanes * reach + cells + ccells),
+          (s1 * step + res) * inner + FW3 * cinner)
+    k2b = 4 * (2 * inner + nplanes * reach + creach + cells)
+    k2 = (k2b, (PRO3 + s2 * step) * inner)
+    k2r = (k2b + 4, (PRO3 + s2 * step + res + 2) * inner)
+    return {"var_smooth_restrict3": k1, "var_prolong_smooth3": k2,
+            "var_prolong_smooth_resnorm3": k2r}
+
+
+def var3_times(card, prob, times, work):
+    """The 513^3 var V-cycle on both paths over the shared hierarchy, and
+    K1v_3 / K2v_3 / K2v_3-resnorm beside their plain versions: at 513^3 on
+    the hierarchy's 3 planes (the record's numbers) and on 4 planes
+    (Chebyshev (3, 2)), and at 257^3 on 6 seeded planes (RB-GS (2, 2), the
+    convection schedule)."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    hier = prob.hierarchy
+    b = prob.rhs()
+    u = torch.zeros_like(b)
+    dof = (2 ** VAR3_LEVEL - 1) ** 3
+    for use in (True, False):
+        cfg = var3_config(use)
+        ms = cuda_ms(lambda: tmg.cycle(hier, cfg, u, b))
+        times["var3_vcycle" if use else "var3_vcycle_plain"] = ms
+        print(f"[times] var V-cycle at {2 ** VAR3_LEVEL + 1}^3, Chebyshev "
+              f"(3, 2), {'kernels' if use else 'plain  '}: {ms:.3f} ms, "
+              f"{dof / (ms * 1e-3):.4g} DOF/s  ({card})")
+    del b, u
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    om3, om2 = ops.chebyshev_omegas(3, 0.4), ops.chebyshev_omegas(2, 0.4)
+    cases = [(PAIRS3[0], 3, "jacobi", om3, 3, om2, 2),
+             (PAIRS3[0], 4, "jacobi", om3, 3, om2, 2),
+             (PAIRS3[1], 6, "rbgs", 1.0, 2, 1.0, 2)]
+    for (shape, shape_c, n), nplanes, sm, o1, s1, o2, s2 in cases:
+        u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
+        ec = interior_randn3(shape_c, n // 2, gen)
+        coef = (hier.levels[0].coef_stack if nplanes == 3
+                else seeded_planes3(nplanes, shape, gen))
+        k2 = (u, b, ec, coef, n, s2, sm, o2)
+        fns = {
+            "var_smooth_restrict3": (
+                lambda: VT3.var_smooth_restrict3(u, b, coef, n, shape_c, s1,
+                                                 sm, o1),
+                lambda: VT3.var_smooth_restrict3_plain(u, b, coef, n,
+                                                       shape_c, s1, sm, o1)),
+            "var_prolong_smooth3": (
+                lambda: VT3.var_prolong_smooth3(*k2),
+                lambda: VT3.var_prolong_smooth3_plain(*k2)),
+            "var_prolong_smooth_resnorm3": (
+                lambda: VT3.var_prolong_smooth_resnorm3(*k2),
+                lambda: VT3.var_prolong_smooth_resnorm3_plain(*k2))}
+        wk = var3_work(shape, shape_c, n, nplanes, sm, s1, s2)
+        for name, (kern, plain) in fns.items():
+            kp = (cuda_ms(kern), cuda_ms(plain))
+            bms, by = bound(*wk[name])
+            if nplanes == 3:
+                times[name], work[name] = kp, wk[name]
+            print(f"[times] {name:27s} {shape} {nplanes} planes, "
+                  f"{'Chebyshev' if sm == 'jacobi' else 'RB-GS'} "
+                  f"({s1}, {s2}): kernel {kp[0]:.3f} ms, plain {kp[1]:.3f} "
+                  f"ms, bound {bms:.3f} ms ({by})  ({card})")
+        del u, b, ec, coef, fns, k2
+        torch.cuda.empty_cache()
+
+
 def bound(nbytes, flops):
     """(ms, "bytes" or "operations"): the least time the card could take to
     move ``nbytes`` and do ``flops`` float32 operations, at its peaks."""
@@ -1301,7 +1815,15 @@ VJAC, VHALF, VRES, VINV = 21, 9, 19, 1
 FW, PRO, PRO_COMP, DS, TS = 12, 3, 8, 64, 115
 
 
-def phase_times(card, prob_var):
+def cells2(S, Sc, n):
+    """Node counts of a 2D level pair: the padded fine and coarse arrays,
+    the fine (n+1)^2 reach and (n-1)^2 interior, the coarse reach and
+    interior."""
+    return (S * S, Sc * Sc, (n + 1) ** 2, (n - 1) ** 2, (n // 2 + 1) ** 2,
+            (n // 2 - 1) ** 2)
+
+
+def phase_times(card, prob_var, prob_var3):
     import tpu_multigrid_torch as tmg
     from tpu_multigrid_torch import precision
     from tpu_multigrid_torch.core import ops
@@ -1355,20 +1877,28 @@ def phase_times(card, prob_var):
             lambda: compres.ts_residual(b, u, lo, lo, n),
             lambda: precision.ts_residual(b, u, lo, lo, n)),
     }
-    N, Nc = 4 * S * S, 4 * Sc * Sc       # bytes of one fine / coarse array
+    # The bytes each function needs, by the rule of the 3D rows: u over the
+    # (n+1)^2 nodes the interior's stencils reach (in full for RB-GS, which
+    # keeps u outside the interior; the interior for K2 and prolong_add,
+    # which mask u + P e_c first), b over the interior, e_c over the
+    # (n/2+1)^2 coarse nodes P reads, every output in full (padded).  The
+    # operations count the interior nodes.
+    N, Nc, reach, inner, creach, cinner = cells2(S, Sc, n)
     work.update({
-        "smooth_restrict": (3 * N + Nc,
-                            (3 * JAC + RES) * S * S + FW * Sc * Sc),
-        "prolong_smooth": (3 * N + Nc, (PRO + 2 * JAC) * S * S),
-        "prolong_smooth_resnorm": (3 * N + Nc,
-                                   (PRO + 2 * JAC + RES + 2) * S * S),
-        "ds_residual": (4 * N, DS * S * S),
-        "ts_residual": (5 * N, TS * S * S)})
+        "smooth_restrict": (4 * (reach + inner + N + Nc),
+                            (3 * JAC + RES) * inner + FW * cinner),
+        "prolong_smooth": (4 * (2 * inner + creach + N),
+                           (PRO + 2 * JAC) * inner),
+        "prolong_smooth_resnorm": (4 * (2 * inner + creach + N) + 4,
+                                   (PRO + 2 * JAC + RES + 2) * inner),
+        "ds_residual": (4 * (inner + 2 * reach + N), DS * inner),
+        "ts_residual": (4 * (inner + 3 * reach + N), TS * inner)})
     for name, (kern, plain) in cases.items():
         times[name] = (cuda_ms(kern), cuda_ms(plain))
         k, p = times[name]
+        bms, by = bound(*work[name])
         print(f"[times] {name:23s} S={S}: kernel {k:.3f} ms, plain {p:.3f} ms"
-              f"  ({card})")
+              f", bound {bms:.3f} ms ({by})  ({card})")
     del u, b, ec, lo, cases
     torch.cuda.empty_cache()
 
@@ -1399,21 +1929,24 @@ def phase_times(card, prob_var):
         "prolong_comp": (lambda: transfer.prolong_comp(ec, n, S),
                          lambda: transfer.prolong_comp_plain(ec, n, S)),
     }
-    N, Nc = 4 * S * S, 4 * Sc * Sc
+    N, Nc, reach, inner, creach, cinner = cells2(S, Sc, n)
     work.update({
-        "jacobi_sweeps_residual": (4 * N, (3 * JAC + RES) * S * S),
-        "jacobi_sweeps": (3 * N, 2 * JAC * S * S),
-        "rbgs_sweeps_residual": (4 * N, (4 * HALF + RES) * S * S),
-        "rbgs_sweeps": (3 * N, 4 * HALF * S * S),
-        "residual": (3 * N, RES * S * S),
-        "restrict_fw": (N + Nc, FW * Sc * Sc),
-        "prolong_add": (2 * N + Nc, PRO * S * S),
-        "prolong_comp": (2 * N + Nc, PRO_COMP * S * S)})
+        "jacobi_sweeps_residual": (4 * (reach + inner + 2 * N),
+                                   (3 * JAC + RES) * inner),
+        "jacobi_sweeps": (4 * (reach + inner + N), 2 * JAC * inner),
+        "rbgs_sweeps_residual": (4 * (inner + 3 * N),
+                                 (4 * HALF + RES) * inner),
+        "rbgs_sweeps": (4 * (inner + 2 * N), 4 * HALF * inner),
+        "residual": (4 * (reach + inner + N), RES * inner),
+        "restrict_fw": (4 * (inner + Nc), FW * cinner),
+        "prolong_add": (4 * (inner + creach + N), PRO * inner),
+        "prolong_comp": (4 * (creach + 2 * N), PRO_COMP * inner)})
     for name, (kern, plain) in cases.items():
         times[name] = (cuda_ms(kern), cuda_ms(plain))
         k, p = times[name]
+        bms, by = bound(*work[name])
         print(f"[times] {name:23s} S={S}: kernel {k:.3f} ms, plain {p:.3f} ms"
-              f"  ({card})")
+              f", bound {bms:.3f} ms ({by})  ({card})")
     # One PyTorch call computing the same function: full weighting is a
     # stride-2 convolution with the 3x3 FW stencil (the kernel also masks
     # the coarse boundary).  Bilinear prolongation is a stride-2 transposed
@@ -1457,6 +1990,7 @@ def phase_times(card, prob_var):
         torch.cuda.empty_cache()
     var_times(card, prob_var, times, work)
     times3d(card, times, work)
+    var3_times(card, prob_var3, times, work)
     return times, work, library
 
 
@@ -1501,16 +2035,21 @@ def var_times(card, prob, times, work):
             lambda: VT.var_prolong_smooth_resnorm(*k2),
             lambda: VT.var_prolong_smooth_resnorm_plain(*k2)),
     }
-    N, Nc, P = 4 * S * S, 4 * Sc * Sc, coef.shape[0]
-    sweep = (VINV + 2 * VHALF) * S * S
+    # By the rule of the 3D rows (phase_times): RB-GS reads u in full, K2v
+    # the interior; each coefficient plane over the reach.
+    N, Nc, reach, inner, creach, cinner = cells2(S, Sc, n)
+    P = coef.shape[0]
+    sweep = (VINV + 2 * VHALF) * inner
+    k2v = 4 * (2 * inner + P * reach + creach + N)
     work.update({
-        "var_smooth": ((3 + P) * N, sweep),
-        "var_smooth_residual": ((4 + P) * N, sweep + VRES * S * S),
-        "var_smooth_restrict_fused": ((3 + P) * N + Nc,
-                                      sweep + VRES * S * S + FW * Sc * Sc),
-        "var_prolong_smooth_fused": ((3 + P) * N + Nc, sweep + PRO * S * S),
-        "var_prolong_smooth_resnorm": ((3 + P) * N + Nc,
-                                       sweep + (PRO + VRES + 2) * S * S)})
+        "var_smooth": (4 * (inner + P * reach + 2 * N), sweep),
+        "var_smooth_residual": (4 * (inner + P * reach + 3 * N),
+                                sweep + VRES * inner),
+        "var_smooth_restrict_fused": (4 * (inner + P * reach + 2 * N + Nc),
+                                      sweep + VRES * inner + FW * cinner),
+        "var_prolong_smooth_fused": (k2v, sweep + PRO * inner),
+        "var_prolong_smooth_resnorm": (k2v + 4,
+                                       sweep + (PRO + VRES + 2) * inner)})
     for name, (kern, plain) in cases.items():
         times[name] = (cuda_ms(kern), cuda_ms(plain))
         k, p = times[name]
@@ -1539,13 +2078,17 @@ def main():
     phase_var_slice(prob_var, setup_secs)
     phase_kernels3d(errs)
     record3d = phase_slice3d()
-    times, work, library = phase_times(card, prob_var)
+    prob_var3, host3, setup3 = var3_setup()
+    phase_var_kernels3d(errs, prob_var3)
+    record_var3d = phase_slice_var3(prob_var3, host3, setup3)
+    times, work, library = phase_times(card, prob_var, prob_var3)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
     for name, n in launches.items():
         check(n > 0, f"{name} was launched on none of the paths")
     print(f"[record] summary: {json.dumps(record)}")
     print(f"[refined3d] summary: {json.dumps(record3d)}")
+    print(f"[var3d] summary: {json.dumps(record_var3d)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

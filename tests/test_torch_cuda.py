@@ -463,8 +463,9 @@ def test_3d_bad_inputs_raise(gen):
     from tpu_multigrid_torch.kernels import transfer3d as T3
     shape, shape_c, n = PAIRS3[0]
     u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
-    with pytest.raises(ValueError):   # deeper than the 3D window
-        T3.smooth_restrict3(u, b, n, shape_c, 10)
+    with pytest.raises(ValueError):   # more per-step weights than a launch
+        T3.smooth_restrict3(u, b, n, shape_c, 17, "jacobi",
+                            ops.chebyshev_omegas(17, 0.4))
     with pytest.raises(ValueError):   # the coarse grid misses S/2
         T3.smooth_restrict3(u, b, n, (16, 16, 128), 1)
     with pytest.raises(ValueError):
@@ -489,3 +490,96 @@ def test_3d_kernel_path_solve_matches_plain_path(gen):
     assert kernels.launch_counts() == counts
     torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
                                rtol=1e-3, atol=0)
+
+
+# Depths whose halo outgrows the 3D window: RB-GS (5, 5) and Chebyshev 10
+# split K1_3 only, RB-GS 6 and Chebyshev 14 K2_3 as well.
+DEEP3 = [("rbgs", 1.0, 5), ("jacobi", ops.chebyshev_omegas(10, 0.4), 10),
+         ("rbgs", 1.0, 6), ("jacobi", ops.chebyshev_omegas(14, 0.4), 14)]
+
+
+@pytest.mark.parametrize("sm,om,sweeps", DEEP3)
+@pytest.mark.parametrize("stencil", [None, "19"])
+def test_k1_3_k2_3_deep_depths_split_bitwise(gen, sm, om, sweeps, stencil):
+    from tpu_multigrid_torch.core.operators import Const19Op
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    st = Const19Op.STENCIL27 if stencil else None
+    shape, shape_c, n = PAIRS3[1]
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    ec = _interior3(shape_c, n // 2, gen)
+    kernels.reset_launch_counts()
+    ku, krc = T3.smooth_restrict3(u, b, n, shape_c, sweeps, sm, om, st)
+    pu, prc = T3.smooth_restrict3_plain(u, b, n, shape_c, sweeps, sm, om, st)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    args = (u, b, ec, n, sweeps, sm, om, st)
+    want = T3.prolong_smooth3_plain(*args)
+    assert torch.equal(T3.prolong_smooth3(*args), want)
+    kv, knorm = T3.prolong_smooth_resnorm3(*args)
+    _, pnorm = T3.prolong_smooth_resnorm3_plain(*args)
+    assert torch.equal(kv, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-5, atol=0)
+    steps = 2 * sweeps if sm == "rbgs" else sweeps
+    halo, ws = _build.lib().window3_max_halo, (1.0,)
+    counts = kernels.launch_counts()
+    assert counts["smooth_restrict3"] == len(T3.split_plan(steps, 2, halo,
+                                                           ws))
+    assert counts["prolong_smooth3"] == len(T3.split_plan(steps, 0, halo, ws))
+    assert counts["prolong_smooth_resnorm3"] == len(
+        T3.split_plan(steps, 1, halo, ws))
+    assert counts["smooth_restrict3"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# The 3D variable-coefficient kernels: K1v_3 and K2v_3
+# ---------------------------------------------------------------------------
+
+def _planes3(nplanes, shape, gen):
+    """Positive coefficient planes from the seed (a diagonally dominant
+    operator for 6 planes too)."""
+    return 0.5 + torch.rand((nplanes,) + shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("nplanes", [3, 4, 6])
+@pytest.mark.parametrize("sm,om,sweeps", SMOOTHERS3
+                         + [("jacobi", ops.chebyshev_omegas(14, 0.4), 14),
+                            ("rbgs", 1.0, 6)])
+def test_var3_kernels_match_plain_bitwise(gen, nplanes, sm, om, sweeps):
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    shape, shape_c, n = PAIRS3[1]
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    ec = _interior3(shape_c, n // 2, gen)
+    coef = _planes3(nplanes, shape, gen)
+    ku, krc = VT3.var_smooth_restrict3(u, b, coef, n, shape_c, sweeps, sm, om)
+    pu, prc = VT3.var_smooth_restrict3_plain(u, b, coef, n, shape_c, sweeps,
+                                             sm, om)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    args = (u, b, ec, coef, n, sweeps, sm, om)
+    want = VT3.var_prolong_smooth3_plain(*args)
+    assert torch.equal(VT3.var_prolong_smooth3(*args), want)
+    kv, knorm = VT3.var_prolong_smooth_resnorm3(*args)
+    _, pnorm = VT3.var_prolong_smooth_resnorm3_plain(*args)
+    assert torch.equal(kv, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-5, atol=0)
+    assert torch.equal(VT3.var_prolong_smooth_resnorm3(*args)[1], knorm)
+
+
+def test_var3_kernel_path_solve_matches_plain_path(gen):
+    """solve_diffusion3d(7) on the kernels (K1v_3 / K2v_3 on the pair 7 ->
+    6) and on the plain operators: exact launch counts, histories to rtol
+    1e-3."""
+    cfg = tmg.MultigridConfig(finest_level=7, smoother="chebyshev", nu1=3,
+                              nu2=2, use_kernels=True)
+    a = lambda x, y, z: 1 + x + 2 * y + z  # noqa: E731
+    kernels.reset_launch_counts()
+    rk = tmg.solve_diffusion3d(7, coefficient=a, config=cfg, num_cycles=3,
+                               device="cuda")
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(var_smooth_restrict3=3, var_prolong_smooth_resnorm3=3)
+    assert counts == want
+    rp = tmg.solve_diffusion3d(7, coefficient=a, config=dataclasses.replace(
+        cfg, use_kernels=False), num_cycles=3, device="cuda")
+    assert kernels.launch_counts() == counts
+    torch.testing.assert_close(rk.res_history, rp.res_history, rtol=1e-3,
+                               atol=0)

@@ -191,8 +191,9 @@ def test_build_is_keyed_by_the_sources():
     names = [p.name for p in _build.sources()]
     assert names == ["compres.cu", "stencil.cu", "stencil3d.cu",
                      "transfer.cu", "transfer3d.cu", "varstencil.cu",
-                     "vartransfer.cu", "levelvisit.cuh", "twosum.cuh",
-                     "varwindow.cuh", "window.cuh", "window3.cuh"]
+                     "vartransfer.cu", "vartransfer3d.cu", "levelvisit.cuh",
+                     "levelvisit3.cuh", "twosum.cuh", "varwindow.cuh",
+                     "window.cuh", "window3.cuh"]
     d = _build.build_dir()
     assert d.parent.name == "build" and d.name.startswith("kernels-")
     assert _build.build_dir() == d

@@ -1,6 +1,6 @@
 """Front-door solve API: single-device Dirichlet solves of Poisson (2D and
-3D), variable-coefficient diffusion and shifted-Poisson (Helmholtz)
-problems.
+3D), variable-coefficient diffusion (2D and 3D), shifted-Poisson
+(Helmholtz) and 3D convection-diffusion problems.
 
 Every entry runs on ``device``; ``device=None`` means the card
 (``config.default_device``), and raises where there is none.
@@ -15,7 +15,9 @@ import torch
 
 from .config import MultigridConfig, default_device
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
+from .problems.convection3d import ConvectionDiffusion3DProblem
 from .problems.diffusion import DiffusionProblem
+from .problems.diffusion3d import Diffusion3DProblem
 from .problems.helmholtz import HelmholtzProblem
 from .problems.poisson import PoissonProblem, boundary_grid
 from .problems.poisson3d import Poisson3DProblem, boundary_grid3
@@ -183,11 +185,8 @@ def solve_poisson3d(
     ``dtype``.
     """
     device = default_device(device)
-    if config is None:
-        config = MultigridConfig(finest_level=finest_level,
-                                 smoother="chebyshev", nu1=3, nu2=2,
-                                 use_kernels=device.type == "cuda")
-    config = _level_config(config, finest_level)
+    config = _config3(config, finest_level, "chebyshev", device, nu1=3,
+                      nu2=2)
     _check_single_device(config, mesh)
     if neumann:
         raise NotImplementedError("neumann faces (3D) are not ported yet")
@@ -195,10 +194,8 @@ def solve_poisson3d(
         if bc != "dirichlet" or refined:
             raise ValueError("order=4 (3D) supports the Dirichlet unrefined "
                              "path")
-        pad = (dict(align=16, min_pad_level=0, lane_align=128)
-               if config.use_kernels else {})
         problem = Poisson4_3DProblem(config, forcing=forcing, device=device,
-                                     **pad)
+                                     **_pad_kw3(config))
         return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
                     boundary=boundary)
     if order != 2:
@@ -211,6 +208,97 @@ def solve_poisson3d(
                                min_pad_level=0, lane_align=128, device=device)
     return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
                 refined=refined, boundary=boundary)
+
+
+def solve_diffusion3d(
+    finest_level: int = 6,
+    *,
+    coefficient: Union[float, Callable] = 1.0,
+    shift: Union[float, Callable] = 0.0,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 6.0,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    boundary: Optional[Union[float, Callable]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -div(a grad u) + shift u = forcing on the unit cube with
+    per-cell coefficients ``a(x, y, z)``, on ``device`` (the card when
+    None).  ``shift`` (a constant or ``c(x, y, z)``, positive-definite
+    regime only) is re-discretized on every level; the coarse levels re-
+    discretize from 2x2x2 cell averages.  Callables are evaluated on float64
+    torch tensors.  ``boundary`` lifts inhomogeneous face values.  Levels
+    are padded to S = round_up(n+1, 16), Sx = round_up(n+1, 128); wide
+    level pairs run K1v_3 / K2v_3 (3 coefficient planes, 4 with ``shift``).
+    The default config is Chebyshev (3, 2), with the kernels on when the
+    solve runs on the card.  ``mesh`` raises ``NotImplementedError`` (not
+    ported yet).
+    """
+    device = default_device(device)
+    config = _config3(config, finest_level, "chebyshev", device, nu1=3,
+                      nu2=2)
+    _check_single_device(config, mesh)
+    problem = Diffusion3DProblem(config, coefficient=coefficient, shift=shift,
+                                 forcing=forcing, device=device)
+    return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+                boundary=boundary)
+
+
+def solve_convection_diffusion3d(
+    finest_level: int = 5,
+    *,
+    eps: float = 1.0,
+    bx: Union[float, Callable] = 0.0,
+    by: Union[float, Callable] = 0.0,
+    bz: Union[float, Callable] = 0.0,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 6.0,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    boundary: Optional[Union[float, Callable]] = None,
+    mesh=None,
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -eps lap(u) + b . grad(u) = forcing on the unit cube (first-
+    order upwind, nonsymmetric), on ``device`` (the card when None).  The
+    winds ``bx``, ``by``, ``bz`` are constants or callables ``b(x, y, z)``,
+    evaluated on float64 torch tensors.  The default config is RB-GS (1, 1),
+    the robust smoother at high mesh Peclet number, with the kernels on when
+    the solve runs on the card; the levels are padded for the kernels only
+    when the config takes them.  Constant winds ride K1_3 / K2_3 through
+    ``STENCIL27``, callable winds K1v_3 / K2v_3 (6 planes).  ``mesh`` raises
+    ``NotImplementedError`` (not ported yet).
+    """
+    device = default_device(device)
+    config = _config3(config, finest_level, "rbgs", device)
+    _check_single_device(config, mesh)
+    problem = ConvectionDiffusion3DProblem(config, eps=eps, bx=bx, by=by,
+                                           bz=bz, forcing=forcing,
+                                           device=device, **_pad_kw3(config))
+    return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+                boundary=boundary)
+
+
+def _config3(config: Optional[MultigridConfig], finest_level: int,
+             smoother: str, device: torch.device, **kw) -> MultigridConfig:
+    """A 3D front door's config: the given one at ``finest_level``, or its
+    default schedule with the kernels on when the solve runs on the card."""
+    if config is None:
+        return MultigridConfig(finest_level=finest_level, smoother=smoother,
+                               use_kernels=device.type == "cuda", **kw)
+    return _level_config(config, finest_level)
+
+
+def _pad_kw3(config: MultigridConfig) -> dict:
+    """The 3D kernels' layout: (z, y) 16-aligned, x 128-aligned."""
+    if config.use_kernels:
+        return dict(align=16, min_pad_level=0, lane_align=128)
+    return {}
 
 
 def _level_config(config: Optional[MultigridConfig],

@@ -91,8 +91,9 @@ def coarse_dense_inverse(op, dtype=torch.float32,
     dtype, as the JAX package stores it).  The constant 5- and 7-point
     stencils are assembled in closed form; a :class:`VarStencilOp` from its
     coefficient planes (numpy, or tensors copied to the host); any other
-    operator (the 19-point ``Const19Op``) is probed with unit grids through
-    its ``apply`` in float32 on the host."""
+    operator (the 19-point ``Const19Op``, the 3D ``VarStencilOp3D`` and
+    ``Directional7Op``) is probed with unit grids through its ``apply`` in
+    float32 on the host, as the JAX package probes them."""
     if type(op) in (ConstStencilOp, ConstStencilOp3D):
         a = dense_poisson_matrix(op.n, getattr(op, "ndim", 2))
         return torch.as_tensor(np.linalg.inv(a), dtype=dtype, device=device)
@@ -121,7 +122,10 @@ def coarse_dense_inverse(op, dtype=torch.float32,
 def _probed_inverse(op, dtype, device) -> torch.Tensor:
     """The inverse of an operator known only through ``apply``: unit grids
     on the unknowns, applied as one float32 batch; column k of the matrix is
-    ``apply(e_k)``."""
+    ``apply(e_k)``.  An operator holding arrays is copied to the host
+    first."""
+    if hasattr(op, "to"):
+        op = op.to("cpu")
     inter = _unknown_slices(op)
     shp = tuple(s.stop - s.start for s in inter)
     m = int(np.prod(shp))

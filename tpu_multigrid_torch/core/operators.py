@@ -7,11 +7,14 @@
   ``(3, 3, S, S)`` coefficient array: variable-coefficient diffusion and
   the Galerkin coarse operators ``R A P`` built from it, and the shifted
   (Helmholtz) Poisson operator.
+* :class:`VarStencilOp3D` is the 3D variable-coefficient 7-point flux
+  stencil, stored as three transmissibility planes (and an optional
+  reaction plane): 3D diffusion, re-discretized on every level.
 
 The variable-coefficient operators are made in two ways, as in the JAX
 package: on the host in numpy (``diffusion_op_host``,
-``galerkin_coarsen_host``), whose operators hold numpy arrays until
-:meth:`VarStencilOp.to` puts them on a device, and in torch
+``galerkin_coarsen_host``, ``diffusion_op3_host``), whose operators hold
+numpy arrays until their ``to`` puts them on a device, and in torch
 (``diffusion_op``, ``galerkin_coarsen``) on tensors where they lie.
 """
 
@@ -484,3 +487,173 @@ def galerkin_coarsen(fine: VarStencilOp, Sc: int) -> VarStencilOp:
     diag = coef[1, 1]
     inv_diag = torch.where(m, 1.0 / torch.where(m, diag, 1.0), 0.0)
     return VarStencilOp(coef, inv_diag, nc, Sc)
+
+
+def _put(a, device):
+    """A numpy array or tensor as a tensor on ``device`` (None stays None)."""
+    if a is None:
+        return None
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    return t.to(device)
+
+
+class VarStencilOp3D:
+    """Variable-coefficient 7-point flux stencil in 3D on an (S, S, Sx)
+    padded grid.
+
+    ``tx[i, j, k]`` couples node (i, j, k) to (i, j, k+1), and likewise
+    ``ty`` along y and ``tz`` along z; the minus-direction coupling is the
+    plane one node back (``t_minus`` = (tz at z-1, ty at y-1, tx at x-1),
+    stored at set-up, else rolled).  ``c2`` is an optional reaction term
+    c h^2 on the diagonal; ``inv_diag`` is built with it.  ``coef_stack``,
+    when given, is the kernels' (3 or 4, S, S, Sx) stack [tz, ty, tx (, c2)]:
+    the same values, and on a device tz / ty / tx / c2 are its planes, so
+    the stack is the only copy.  ``apply``, ``residual`` and ``smooth``
+    evaluate the JAX package's ``VarStencilOp3D`` term for term in its order;
+    ``apply`` broadcasts over leading batch axes.  ``box`` (mixed boundary
+    conditions) is not ported yet.
+    """
+
+    ndim = 3
+
+    def __init__(self, tz, ty, tx, inv_diag, n: int, S: int, Sx: int,
+                 c2=None, t_minus=None, coef_stack=None, box=None):
+        if box is not None:
+            raise NotImplementedError("box operators (mixed boundary "
+                                      "conditions) are not ported yet")
+        self.tz, self.ty, self.tx = tz, ty, tx
+        self.inv_diag = inv_diag
+        self.n = int(n)
+        self.S = int(S)
+        self.Sx = int(Sx)
+        self.c2 = c2
+        self.t_minus = tuple(t_minus) if t_minus is not None else None
+        self.coef_stack = coef_stack
+
+    @property
+    def grid_shape(self):
+        return (self.S, self.S, self.Sx)
+
+    def to(self, device) -> "VarStencilOp3D":
+        """The operator with every array as a tensor on ``device``; with a
+        ``coef_stack`` the planes are views of the uploaded stack."""
+        stack = _put(self.coef_stack, device)
+        if stack is not None:
+            tz, ty, tx = stack[0], stack[1], stack[2]
+            c2 = stack[3] if stack.shape[0] == 4 else _put(self.c2, device)
+        else:
+            tz, ty, tx, c2 = (_put(a, device) for a in (self.tz, self.ty,
+                                                        self.tx, self.c2))
+        tm = None
+        if self.t_minus is not None:
+            tm = tuple(_put(a, device) for a in self.t_minus)
+        return VarStencilOp3D(tz, ty, tx, _put(self.inv_diag, device),
+                              self.n, self.S, self.Sx, c2=c2, t_minus=tm,
+                              coef_stack=stack)
+
+    def _tm(self):
+        if self.t_minus is not None:
+            return self.t_minus
+        return (torch.roll(self.tz, 1, -3), torch.roll(self.ty, 1, -2),
+                torch.roll(self.tx, 1, -1))
+
+    def _diag(self, dtype):
+        tzm, tym, txm = self._tm()
+        d = self.tx + txm + self.ty + tym + self.tz + tzm
+        if self.c2 is not None:
+            d = d + self.c2
+        return d.to(dtype)
+
+    def _off_diag_apply(self, u):
+        tzm, tym, txm = self._tm()
+        acc = (self.tx * torch.roll(u, -1, -1) + txm * torch.roll(u, 1, -1)
+               + self.ty * torch.roll(u, -1, -2) + tym * torch.roll(u, 1, -2)
+               + self.tz * torch.roll(u, -1, -3)
+               + tzm * torch.roll(u, 1, -3))
+        return acc.to(u.dtype)
+
+    def apply(self, u):
+        out = self._diag(u.dtype) * u - self._off_diag_apply(u)
+        return ops3d.mask_interior3(out.to(u.dtype), self.n)
+
+    def residual(self, u, b):
+        return ops3d.mask_interior3((b - self.apply(u)).to(u.dtype), self.n)
+
+    def smooth(self, u, b, *, smoother: str, omega, sweeps: int):
+        return smooth_flux3(self, u, b, smoother, omega, sweeps)
+
+    def __repr__(self):
+        return f"VarStencilOp3D(n={self.n}, S={self.S}, Sx={self.Sx})"
+
+
+def smooth_flux3(op, u, b, smoother: str, omega, sweeps: int):
+    """Weighted Jacobi (``omega`` a float or a per-sweep tuple) or RB-GS,
+    (i+j+k) even first, of a 3D operator with ``inv_diag`` and
+    ``_off_diag_apply`` (``VarStencilOp3D``, ``Directional7Op``), in the JAX
+    package's order: (1-w) v + w inv_d (b + off), masked to the interior."""
+    if sweeps <= 0:
+        return u
+    m = ops3d.interior_mask3(u.shape[-3:], op.n, u.device)
+    inv_d = op.inv_diag.to(u.dtype)
+    if smoother == "jacobi":
+        ws = omega if isinstance(omega, tuple) else (omega,)
+        v = u
+        for s in range(sweeps):
+            w = ws[s % len(ws)]
+            vn = (1.0 - w) * v + w * inv_d * (b + op._off_diag_apply(v))
+            v = torch.where(m, vn, 0.0)
+        return v
+    if smoother == "rbgs":
+        par = ops3d.parity3(u.shape[-3:], u.device)
+        v = u
+        for _ in range(sweeps):
+            for parity in (0, 1):
+                vn = inv_d * (b + op._off_diag_apply(v))
+                v = torch.where(m & (par == parity), vn.to(u.dtype), v)
+        return v
+    raise ValueError(f"unknown smoother {smoother!r}")
+
+
+def _interior3_np(shape, n: int) -> np.ndarray:
+    inter = np.zeros(shape, bool)
+    inter[1:n, 1:n, 1:n] = True
+    return inter
+
+
+def diffusion_op3_host(cell_coeff, n: int, S: int, Sx: int) -> VarStencilOp3D:
+    """3D -div(a grad u) as a 7-point flux stencil, in numpy on the host,
+    from the (n, n, n) per-cell coefficients: the transmissibility of an
+    edge is the mean of the four cells sharing it (``a == 1`` gives the
+    7-point Poisson stencil).  The JAX package's arithmetic in its order:
+    the planes equal its ``diffusion_op3_host`` bitwise.  tz / ty / tx are
+    the planes of the (3, S, S, Sx) ``coef_stack``."""
+    cells = np.asarray(cell_coeff)
+    if cells.shape != (n, n, n):
+        raise ValueError(f"cell_coeff must be ({n},{n},{n}), got "
+                         f"{cells.shape}")
+    dt = cells.dtype
+    shape = (S, S, Sx)
+    cpad = np.zeros((S + 1, S + 1, Sx + 1), dt)
+    cpad[1:n + 1, 1:n + 1, 1:n + 1] = cells
+
+    def cview(di, dj, dk):
+        return cpad[di:di + S, dj:dj + S, dk:dk + Sx]
+
+    stack = np.empty((3,) + shape, dt)
+    # Edge (i,j,k) -> (i,j,k+1): the cells (i-1..i, j-1..j, k); likewise for
+    # the y and z edges.
+    stack[2] = 0.25 * (cview(0, 0, 1) + cview(0, 1, 1)
+                       + cview(1, 0, 1) + cview(1, 1, 1))
+    stack[1] = 0.25 * (cview(0, 1, 0) + cview(0, 1, 1)
+                       + cview(1, 1, 0) + cview(1, 1, 1))
+    stack[0] = 0.25 * (cview(1, 0, 0) + cview(1, 0, 1)
+                       + cview(1, 1, 0) + cview(1, 1, 1))
+    del cpad
+    tz, ty, tx = stack[0], stack[1], stack[2]
+    tzm, tym, txm = np.roll(tz, 1, 0), np.roll(ty, 1, 1), np.roll(tx, 1, 2)
+    diag = tx + txm + ty + tym + tz + tzm
+    inter = _interior3_np(shape, n)
+    inv_diag = np.zeros(shape, dt)
+    inv_diag[inter] = 1.0 / diag[inter]
+    return VarStencilOp3D(tz, ty, tx, inv_diag, n, S, Sx,
+                          t_minus=(tzm, tym, txm), coef_stack=stack)

@@ -14,7 +14,11 @@ and variable-coefficient branches of ``tpu_multigrid.cycles`` are here, and
 the 3D constant-coefficient one: a 7-point or static-stencil (19-point)
 pair that passes :func:`_use_super_kernels3` is K1_3 and K2_3, other
 7-point levels run the 3D streaming smoother (``kernels.stencil3d``), and
-the 3D transfers outside K1_3/K2_3 are plain torch, as in the JAX package.
+the 3D transfers outside K1_3/K2_3 are plain torch, as in the JAX package;
+and the 3D variable-coefficient one: a flux-stencil or variable-wind pair
+that passes :func:`_use_var_super_kernels3` is K1v_3 and K2v_3, other such
+levels run their plain operators (the JAX package has no 3D var smoother
+kernel).
 """
 
 from __future__ import annotations
@@ -28,13 +32,15 @@ import torch
 from ..config import MultigridConfig
 from ..core import ops, ops3d
 from ..core.grids import Hierarchy, coarse_solve
-from ..core.operators import ConstStencilOp, ConstStencilOp3D, VarStencilOp
+from ..core.operators import (ConstStencilOp, ConstStencilOp3D, VarStencilOp,
+                              VarStencilOp3D)
 from ..kernels import stencil as _k
 from ..kernels import stencil3d as _k3
 from ..kernels import transfer as _t
 from ..kernels import transfer3d as _t3
 from ..kernels import varstencil as _v
 from ..kernels import vartransfer as _vt
+from ..kernels import vartransfer3d as _vt3
 
 
 # ---------------------------------------------------------------------------
@@ -298,16 +304,63 @@ def _fused_k2_3d(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
                                stencil=st)
 
 
+def _use_var_super_kernels3(op, opc, cfg: MultigridConfig, dtype) -> bool:
+    """Whether this 3D variable-coefficient level visit runs as K1v_3 +
+    K2v_3: a ``VarStencilOp3D`` pair (3 planes, 4 with a reaction term) or
+    a variable-wind ``Directional7Op`` pair (6 planes; constant winds carry
+    ``STENCIL27`` and ride K1_3 / K2_3)."""
+    if not cfg.use_kernels:
+        return False
+    from ..problems.convection3d import Directional7Op
+    pair_var = (isinstance(op, VarStencilOp3D)
+                and isinstance(opc, VarStencilOp3D))
+    pair_dir = (isinstance(op, Directional7Op)
+                and isinstance(opc, Directional7Op)
+                and op.STENCIL27 is None and opc.STENCIL27 is None)
+    if not (pair_var or pair_dir):
+        return False
+    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
+        return False
+    if cfg.effective_smooth_dtype != dtype:
+        return False
+    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
+        return False
+    mult = 2 if cfg.smoother == "rbgs" else 1
+    steps = mult * max(cfg.nu1, cfg.nu2)
+    nplanes = 6 if pair_dir else (3 if op.c2 is None else 4)
+    return _vt3.supported_var3(op.grid_shape, opc.grid_shape, steps, dtype,
+                               nplanes)
+
+
+def _fused_k1v3(op, opc, cfg: MultigridConfig, u, b):
+    smoother, omega = _sm(cfg, cfg.nu1)
+    return _vt3.var_smooth_restrict3(u, b, _vt3._flat_coef3(op), op.n,
+                                     opc.grid_shape, cfg.nu1, smoother, omega)
+
+
+def _fused_k2v3(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
+    smoother, omega = _sm(cfg, cfg.nu2)
+    coef = _vt3._flat_coef3(op)
+    if resnorm:
+        return _vt3.var_prolong_smooth_resnorm3(u, b, ec, coef, op.n,
+                                                cfg.nu2, smoother, omega)
+    return _vt3.var_prolong_smooth3(u, b, ec, coef, op.n, cfg.nu2, smoother,
+                                    omega)
+
+
 def _level_visit_kernels(op, opc, cfg: MultigridConfig, dtype):
     """(K1, K2) of this level visit's fused pair, or None when it runs
-    unfused: the constant 2D pair first, then the variable-coefficient one,
-    then the 3D one."""
+    unfused, tested in the JAX package's order: the constant 2D pair, the
+    variable-coefficient 2D one, the constant 3D one, the variable-
+    coefficient 3D one."""
     if _use_super_kernels(op, opc, cfg, dtype):
         return _fused_k1, _fused_k2
     if _use_var_super_kernels(op, opc, cfg, dtype):
         return _fused_k1v, _fused_k2v
     if _use_super_kernels3(op, opc, cfg, dtype):
         return _fused_k1_3d, _fused_k2_3d
+    if _use_var_super_kernels3(op, opc, cfg, dtype):
+        return _fused_k1v3, _fused_k2v3
     return None
 
 

@@ -13,8 +13,9 @@ import torch
 from .config import MultigridConfig
 from .core.grids import Hierarchy
 from .core.operators import (Const19Op, ConstStencilOp3D, VarStencilOp,
-                             poisson_op)
+                             VarStencilOp3D, poisson_op)
 from .cycles import SolveResult
+from .problems.convection3d import Directional7Op
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
            "float32": torch.float32, "float64": torch.float64}
@@ -83,6 +84,42 @@ def var_hierarchy_from_numpy(levels, coarse_inv=None,
             tensor_from_numpy(lv["inv_diag"], device), lv["n"], lv["S"],
             coef_sym=None if sym is None else tensor_from_numpy(sym, device),
             is_symmetric=lv.get("is_symmetric", True)))
+    inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
+    return Hierarchy(ops_, inv)
+
+
+def var3_hierarchy_from_numpy(levels, coarse_inv=None,
+                              device=None) -> Hierarchy:
+    """A 3D variable-coefficient hierarchy from the JAX one's levels, finest
+    first, each a dict of numpy arrays and values, as tensors on ``device``:
+    a ``VarStencilOp3D`` from ``tz``, ``ty``, ``tx``, ``inv_diag``, ``n``,
+    ``S``, ``Sx`` and the optional ``c2``, ``t_minus`` and ``coef_stack``;
+    or, for a level with a ``diag``, a ``Directional7Op`` from ``cp`` and
+    ``cm`` (or its ``coef_stack``), ``diag``, ``inv_diag``, ``n``, ``S``,
+    ``Sx`` and the optional ``stencil27``.  ``coarse_inv`` is the coarse
+    dense inverse (numpy, or None when the coarsest level is smoothed)."""
+    def put(key, lv):
+        a = lv.get(key)
+        if a is None:
+            return None
+        if key in ("cp", "cm", "t_minus"):
+            return [tensor_from_numpy(x, device) for x in a]
+        return tensor_from_numpy(a, device)
+
+    ops_ = []
+    for lv in levels:
+        if "diag" in lv:
+            ops_.append(Directional7Op(
+                put("cp", lv), put("cm", lv), put("diag", lv),
+                put("inv_diag", lv), lv["n"], lv["S"], lv["Sx"],
+                stencil27=lv.get("stencil27"),
+                coef_stack=put("coef_stack", lv)))
+        else:
+            ops_.append(VarStencilOp3D(
+                put("tz", lv), put("ty", lv), put("tx", lv),
+                put("inv_diag", lv), lv["n"], lv["S"], lv["Sx"],
+                c2=put("c2", lv), t_minus=put("t_minus", lv),
+                coef_stack=put("coef_stack", lv)))
     inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
     return Hierarchy(ops_, inv)
 

@@ -6,10 +6,10 @@ imported: ``_build.lib()`` compiles ``csrc/*.cu`` at the first launch.
 """
 
 from . import (compres, stencil, stencil3d, transfer, transfer3d, varstencil,
-               vartransfer)
+               vartransfer, vartransfer3d)
 
 _MODULES = (transfer, stencil, compres, varstencil, vartransfer, stencil3d,
-            transfer3d)
+            transfer3d, vartransfer3d)
 
 
 def launch_counts() -> dict:

@@ -71,14 +71,22 @@ _SIGNATURES = {
     # u, b, u_out, r_out, Sz, Sy, Sx, n, steps, first_step, rbgs, weights,
     # count, stream
     "tmt_streamed3": ([_P] * 4 + [_I] * 7 + [_P, _I, _P], _I),
-    # u, b, u_out, rc, Sz, Sy, Sx, Szc, Syc, Scx, n, steps, rbgs, weights,
-    # count, taps, ntaps, stream
-    "tmt_smooth_restrict3": ([_P] * 4 + [_I] * 9 + [_P, _I, _P, _I, _P], _I),
+    # u, b, u_out, rc, Sz, Sy, Sx, Szc, Syc, Scx, n, steps, first_step,
+    # rbgs, weights, count, taps, ntaps, stream
+    "tmt_smooth_restrict3": ([_P] * 4 + [_I] * 10 + [_P, _I, _P, _I, _P],
+                             _I),
     # Sz, Sy, Sx, steps
     "tmt_prolong_smooth3_blocks": ([_I] * 4, _I),
     # u, b, ec, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx, n,
-    # steps, rbgs, weights, count, taps, ntaps, stream
-    "tmt_prolong_smooth3": ([_P] * 6 + [_I] * 9 + [_P, _I, _P, _I, _P], _I),
+    # steps, first_step, rbgs, weights, count, taps, ntaps, stream
+    "tmt_prolong_smooth3": ([_P] * 6 + [_I] * 10 + [_P, _I, _P, _I, _P],
+                            _I),
+    # u, b, coef, u_out, rc, Sz, Sy, Sx, Szc, Syc, Scx, n, steps,
+    # first_step, rbgs, nplanes, weights, count, stream
+    "tmt_var_smooth_restrict3": ([_P] * 5 + [_I] * 11 + [_P, _I, _P], _I),
+    # u, b, ec, coef, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx,
+    # n, steps, first_step, rbgs, nplanes, weights, count, stream
+    "tmt_var_prolong_smooth3": ([_P] * 7 + [_I] * 11 + [_P, _I, _P], _I),
 }
 
 _lock = threading.Lock()

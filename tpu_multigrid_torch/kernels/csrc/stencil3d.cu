@@ -49,10 +49,10 @@ streamed3_kernel(const float* __restrict__ u, const float* __restrict__ b,
   load_window3(bw, b, g, z0, y0, x0);
   __syncthreads();
 
-  Taps none;
-  none.count = 0;
-  const float* v = smooth3<false>(buf_a, buf_b, bw, z0, y0, x0, g.n, steps,
-                                  first_step, rbgs, wt, none);
+  ConstOp3<false> op;
+  op.tp.count = 0;
+  const float* v = smooth3(buf_a, buf_b, bw, z0, y0, x0, g.n, steps,
+                           first_step, rbgs, wt, op);
 
   const int lx = threadIdx.x;
   const int gx = x0 + lx;
@@ -71,7 +71,7 @@ streamed3_kernel(const float* __restrict__ u, const float* __restrict__ b,
     if (u_out != nullptr) u_out[o] = v[k];
     if (r_out != nullptr) {
       r_out[o] = interior3(gz, gy, gx, g.n)
-                     ? residual3_at<false>(v, bw, k, none)
+                     ? op.residual(v, bw, k, gz, gy, gx)
                      : 0.0f;
     }
   }

@@ -1,7 +1,7 @@
-// Shared-memory window machinery of the 3D kernels (stencil3d.cu,
-// transfer3d.cu): a block loads a fixed kW3yz x kW3yz x kW3x window (z, y,
-// x) of the grid into shared memory, runs its smoothing steps there and
-// writes the tile that lies `halo` cells inside the window's faces (ghost-
+// Shared-memory window machinery of the 3D kernels (stencil3d.cu, and
+// through levelvisit3.cuh transfer3d.cu and vartransfer3d.cu): a block loads
+// a fixed kW3yz x kW3yz x kW3x window (z, y, x) of the grid into shared
+// memory, runs its smoothing steps there and writes the tile that lies `halo` cells inside the window's faces (ghost-
 // zone temporal blocking: each step invalidates one layer of the window, and
 // the halo is deep enough that no invalid cell reaches an output).  The
 // window is fixed and the tile shrinks with the halo: (kW3yz - 2 halo)^2 x
@@ -11,6 +11,9 @@
 // global load and store of a row is one coalesced access; the 16 warps of a
 // block stride over the kW3yz^2 rows.  Three f32 windows (the iterate, its
 // double buffer, b) take 216 KB: one block per SM.
+//
+// The smoothing loop is generic in the operator (ConstOp3 here, VarOp3 in
+// vartransfer3d.cu), which it calls at interior nodes only.
 //
 // Arithmetic: the Pallas kernels' order (tpu_multigrid/kernels/
 // stencil3d.py), which the plain versions in kernels/stencil3d.py repeat,
@@ -127,18 +130,45 @@ __device__ void load_window3(float* dst, const float* __restrict__ src,
   }
 }
 
-// Runs `steps` steps on the window, each from the state before it into the
-// other buffer; returns the buffer that holds the result (the other one is
-// free).  Jacobi local step s uses weights s % count, c1 v + c2 (b + nbr)
-// (7-point) or c1 v + c2 (b - off) (static stencil), and writes 0 outside
-// the interior.  RB-GS half-step s updates the interior nodes of colour
-// (first_step + s) % 2 with c2[0] (b + nbr) or c2[0] (b - off) and keeps
-// every other node.  The outermost layer has no neighbours in the window
-// and keeps its value: it is invalid after the first step.
+// The constant operator of a window: the 7-point Poisson stencil, or static
+// 3x3x3 weights (S27).  The smoothing and level-visit templates call
+// jacobi / gs / residual at interior nodes only; `gz, gy, gx` are the
+// node's global indices (unused here).
 template <bool S27>
+struct ConstOp3 {
+  Taps tp;
+
+  __device__ __forceinline__ float f(const float* v, const float* bw,
+                                     int k) const {
+    return S27 ? bw[k] - off27(v, k, tp) : bw[k] + nbr7(v, k);
+  }
+  // c1 v + c2 (b + nbr) or c1 v + c2 (b - off).
+  __device__ __forceinline__ float jacobi(const float* v, const float* bw,
+                                          int k, int, int, int, float c1,
+                                          float c2) const {
+    return c1 * v[k] + c2 * f(v, bw, k);
+  }
+  __device__ __forceinline__ float gs(const float* v, const float* bw, int k,
+                                      int, int, int, float c2) const {
+    return c2 * f(v, bw, k);
+  }
+  __device__ __forceinline__ float residual(const float* v, const float* bw,
+                                            int k, int, int, int) const {
+    return residual3_at<S27>(v, bw, k, tp);
+  }
+};
+
+// Runs `steps` steps of `op` on the window, each from the state before it
+// into the other buffer; returns the buffer that holds the result (the
+// other one is free).  Jacobi local step s uses weights s % count and writes
+// 0 outside the interior.  RB-GS half-step s updates the interior nodes of
+// colour (first_step + s) % 2 and keeps every other node.  The outermost
+// layer has no neighbours in the window and keeps its value: it is invalid
+// after the first step.
+template <typename Op>
 __device__ float* smooth3(float* v, float* spare, const float* bw, int z0,
                           int y0, int x0, int n, int steps, int first_step,
-                          int rbgs, const Weights& wt, const Taps& tp) {
+                          int rbgs, const Weights& wt, const Op& op) {
   const int lx = threadIdx.x;
   const int gx = x0 + lx;
   const bool x_inner = lx > 0 && lx < kW3x - 1;
@@ -157,11 +187,12 @@ __device__ float* smooth3(float* v, float* spare, const float* bw, int z0,
         const int gy = y0 + ly;
         const bool inter = x_in && gz >= 1 && gz <= n - 1 && gy >= 1 &&
                            gy <= n - 1;
-        const float f = S27 ? bw[k] - off27(v, k, tp) : bw[k] + nbr7(v, k);
         if (rbgs) {
-          if (inter && ((gz + gy + gx) & 1) == color) out = c2 * f;
+          if (inter && ((gz + gy + gx) & 1) == color) {
+            out = op.gs(v, bw, k, gz, gy, gx, c2);
+          }
         } else {
-          out = inter ? c1 * v[k] + c2 * f : 0.0f;
+          out = inter ? op.jacobi(v, bw, k, gz, gy, gx, c1, c2) : 0.0f;
         }
       }
       spare[k] = out;

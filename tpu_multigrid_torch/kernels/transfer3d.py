@@ -14,8 +14,12 @@ _smooth_restrict3`` and ``::_prolong_smooth3``.  Each entry runs its plain
 torch version (``*_plain``, in the Pallas kernels' order: the restriction
 blurs x, then y, then z; the prolongation averages x, then y, then z) on
 CPU tensors and launches its CUDA kernel on CUDA tensors; on a CUDA tensor
-it never falls back, and a depth whose window does not fit in shared memory
-raises.  ``LAUNCHES`` counts kernel launches per entry.
+it never falls back.  A depth whose halo does not fit in the 3D window is
+split into launches (:func:`split_plan`): K1_3 runs its leading steps as
+smoothing passes alone and its last ones fused with the residual and the
+restriction, K2_3 its prolongation with the first steps and the rest as
+smoothing passes, the resnorm fused into the last.  ``LAUNCHES`` counts
+kernel launches per entry, each launch of a split call included.
 """
 
 from __future__ import annotations
@@ -139,20 +143,40 @@ def _check_options(entry, u, smoother) -> None:
         raise ValueError(f"unknown smoother {smoother!r}")
 
 
-def _launch_args(entry, lib, smoother, omega, sweeps, stencil, extra):
-    """(steps, rbgs flag, weights, taps) for a C entry; raises when a halo
-    of steps + ``extra`` layers does not fit in the 3D window."""
+def split_plan(steps: int, extra: int, limit: int, ws: tuple) -> list:
+    """The launches that run ``steps`` window steps when a launch's halo
+    holds at most ``limit`` layers and the last launch needs ``extra`` more
+    (K1: 2, for the residual and the blur; K2: 1 with the resnorm, else 0):
+    (first step, steps, weights) each, the weights rotated to the launch's
+    first step so that its local step s takes ws[(first + s) % len(ws)].
+    One launch when steps + extra fits; else as few as fit, the halo spread
+    evenly over them, the last taking the smallest share."""
+    if steps < 0 or extra > limit:
+        raise ValueError(f"no launch plan for {steps} steps + {extra}")
+    total = steps + extra
+    count = max(1, -(-total // limit))
+    halos = [total // count + (1 if i < total % count else 0)
+             for i in range(count)]
+    plan, first = [], 0
+    for i, h in enumerate(halos):
+        k = h - extra if i == count - 1 else h
+        plan.append((first, k, tuple(ws[(first + s) % len(ws)]
+                                     for s in range(max(1, min(k, len(ws)))))))
+        first += k
+    return plan
+
+
+def launch_args(entry, smoother, omega, sweeps, stencil):
+    """(steps, rbgs flag, per-step weights, taps) for a C entry."""
     steps = 2 * sweeps if smoother == "rbgs" else sweeps
     ws = omega if isinstance(omega, tuple) else (omega,)
     if len(ws) > 16:
         raise ValueError(f"{entry}: at most 16 per-step weights")
-    if steps + extra > lib.window3_max_halo:
-        raise ValueError(
-            f"{entry}: {steps} steps need a halo of {steps + extra} layers; "
-            f"the 3D window holds at most {lib.window3_max_halo}")
-    rbgs = smoother == "rbgs"
-    weights = rbgs_weights3(stencil) if rbgs else step_weights3(ws, stencil)
-    return steps, int(rbgs), weights, taps_array(stencil)
+    return steps, int(smoother == "rbgs"), ws, taps_array(stencil)
+
+
+def _weights(rbgs, ws, stencil) -> np.ndarray:
+    return rbgs_weights3(stencil) if rbgs else step_weights3(ws, stencil)
 
 
 def _shape(entry, x) -> tuple:
@@ -160,6 +184,23 @@ def _shape(entry, x) -> tuple:
         raise ValueError(f"{entry}: expected an (Sz, Sy, Sx) grid, got "
                          f"{tuple(x.shape)}")
     return tuple(x.shape)
+
+
+def run_launches(entry, counts, u, plan, launch):
+    """The launches of a split call, in order: launch i of ``plan`` reads
+    the output of the one before (u for the first) into a fresh tensor;
+    ``launch(i, src, out, first, k, ws, stream)`` issues it and returns its
+    error code.  Each launch adds one to ``counts[entry]``.  Returns the
+    last output."""
+    src = u
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, (first, k, ws) in enumerate(plan):
+            out = torch.empty_like(u)
+            _build.check(launch(i, src, out, first, k, ws, stream), entry)
+            counts[entry] += 1
+            src = out
+    return src
 
 
 def smooth_restrict3(u, b, n: int, shape_c, sweeps: int,
@@ -176,19 +217,21 @@ def smooth_restrict3(u, b, n: int, shape_c, sweeps: int,
     if any(2 * c < f for f, c in zip(shape, shape_c)):
         raise ValueError("smooth_restrict3: the coarse grid must cover S/2")
     lib = _build.lib()
-    steps, rbgs, weights, taps = _launch_args(
-        "smooth_restrict3", lib, smoother, omega, sweeps, stencil, 2)
-    u_out = torch.empty_like(u)
+    steps, rbgs, ws, taps = launch_args("smooth_restrict3", smoother, omega,
+                                         sweeps, stencil)
+    plan = split_plan(steps, 2, lib.window3_max_halo, ws)
     rc = torch.empty(shape_c, dtype=u.dtype, device=u.device)
-    with torch.cuda.device(u.device):
-        err = lib.tmt_smooth_restrict3(
-            u.data_ptr(), b.data_ptr(), u_out.data_ptr(), rc.data_ptr(),
-            *shape, *shape_c, n, steps, rbgs, weights.ctypes.data,
-            weights.size // 2, taps.ctypes.data, taps.size // 4,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "smooth_restrict3")
-    LAUNCHES["smooth_restrict3"] += 1
-    return u_out, rc
+
+    def launch(i, src, out, first, k, launch_ws, stream):
+        wt = _weights(rbgs, launch_ws, stencil)
+        rest = (*shape, *shape_c, n, k, first, rbgs, wt.ctypes.data,
+                wt.size // 2, taps.ctypes.data, taps.size // 4, stream)
+        if i < len(plan) - 1:      # a leading smoothing pass
+            return lib.tmt_prolong_smooth3(src.data_ptr(), b.data_ptr(), None,
+                                           out.data_ptr(), None, None, *rest)
+        return lib.tmt_smooth_restrict3(src.data_ptr(), b.data_ptr(),
+                                        out.data_ptr(), rc.data_ptr(), *rest)
+    return run_launches("smooth_restrict3", LAUNCHES, u, plan, launch), rc
 
 
 def _prolong_smooth3_cuda(entry, u, b, ec, n, sweeps, smoother, omega,
@@ -196,25 +239,25 @@ def _prolong_smooth3_cuda(entry, u, b, ec, n, sweeps, smoother, omega,
     shape, shape_c = _shape(entry, u), _shape(entry, ec)
     _build.check_inputs(entry, (u, b, ec), (shape, shape, shape_c))
     lib = _build.lib()
-    steps, rbgs, weights, taps = _launch_args(
-        entry, lib, smoother, omega, sweeps, stencil, int(resnorm))
-    u_out = torch.empty_like(u)
+    steps, rbgs, ws, taps = launch_args(entry, smoother, omega, sweeps,
+                                         stencil)
+    plan = split_plan(steps, int(resnorm), lib.window3_max_halo, ws)
     partials = out_sum = None
     if resnorm:
-        blocks = lib.tmt_prolong_smooth3_blocks(*shape, steps)
+        blocks = lib.tmt_prolong_smooth3_blocks(*shape, plan[-1][1])
         partials = torch.empty(blocks, dtype=torch.float32, device=u.device)
         out_sum = torch.empty((), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
-        err = lib.tmt_prolong_smooth3(
-            u.data_ptr(), b.data_ptr(), ec.data_ptr(), u_out.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            None if out_sum is None else out_sum.data_ptr(),
-            *shape, *shape_c, n, steps, rbgs, weights.ctypes.data,
-            weights.size // 2, taps.ctypes.data, taps.size // 4,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, entry)
-    LAUNCHES[entry] += 1
-    return u_out, out_sum
+
+    def launch(i, src, out, first, k, launch_ws, stream):
+        wt = _weights(rbgs, launch_ws, stencil)
+        norm = resnorm and i == len(plan) - 1
+        return lib.tmt_prolong_smooth3(
+            src.data_ptr(), b.data_ptr(), ec.data_ptr() if i == 0 else None,
+            out.data_ptr(), partials.data_ptr() if norm else None,
+            out_sum.data_ptr() if norm else None, *shape, *shape_c, n, k,
+            first, rbgs, wt.ctypes.data, wt.size // 2, taps.ctypes.data,
+            taps.size // 4, stream)
+    return run_launches(entry, LAUNCHES, u, plan, launch), out_sum
 
 
 def prolong_smooth3(u, b, ec, n: int, sweeps: int, smoother: str = "jacobi",
