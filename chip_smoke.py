@@ -56,10 +56,28 @@ Phases, each printing its own lines:
    the residual kernel; solve_poisson3d(9, order=4) on the 19-point weights
    against the plain path; a refined level-5 solve to 1e-10 against a
    scipy sparse float64 direct solve.
-5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var) and at 513^3
-   on both paths, one ts iteration at 16385^2 on both paths, and each kernel
-   beside its plain version (K1/K2/ds/ts at S = 8448, the var kernels at
-   4352, the 3D ones at (528, 528, 640), the others at 16640), with CUDA
+4g. The 3D variable-coefficient slice at 513^3 (solve_diffusion3d, with and
+   without a reaction term, and solve_convection_diffusion3d at 257^3):
+   K1v_3 / K2v_3 bitwise at the fused pairs, each path on both routes with
+   exact launch counts, level 5 in float64 against scipy.
+4h. The 2D anisotropic slice at 4097^2 (benchmarks/bench_families.py's
+   rotated anisotropy: 45 degrees, eps_x = 1, eps_y = 0.05, zebra_x (1, 1),
+   coarsest level 3, levels padded to 256): the zebra smoother, K1z, K2z
+   and K2z-resnorm bitwise against their plain versions at 4352 / 2304,
+   2304 / 1280, 1280 / 768 and 256 / 256 on the rotated fine operator, the
+   Galerkin levels and a seeded 9-point operator (the norm to 1e-4), and
+   the smoother at S = 8448 on the level-13 operator; then, each with exact
+   launch counts, solve_anisotropic(12, tol=1e-5) on both paths, 10 cycles
+   from a seeded random right-hand side (reduction per cycle < 0.5 on
+   both), the zebra_y route (the transposed problem on the zebra_x
+   kernels) against the plain zebra_y path, the unfused route (injection
+   restriction), and level 6 in float64 against scipy's sparse direct
+   solve.
+5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var and
+   anisotropic) and at 513^3 on both paths, one ts iteration at 16385^2 on
+   both paths, and each kernel beside its plain version (K1/K2/ds/ts at
+   S = 8448, the var and zebra kernels at 4352, the 3D ones at (528, 528,
+   640), the others at 16640), with CUDA
    events (median of 7 after warm-up), and the one PyTorch call that
    computes the same function where there is one.
 
@@ -104,6 +122,7 @@ _VT = "tpu_multigrid/kernels/vartransfer.py"
 _S3 = "tpu_multigrid/kernels/stencil3d.py:240"
 _T3 = "tpu_multigrid/kernels/transfer3d.py"
 _VT3 = "tpu_multigrid/kernels/vartransfer3d.py"
+_Z = "tpu_multigrid/kernels/lines.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -134,10 +153,15 @@ REPLACES = {
     "var_smooth_restrict3": f"{_VT3}:214",
     "var_prolong_smooth3": f"{_VT3}:385",
     "var_prolong_smooth_resnorm3": f"{_VT3}:385",
+    "zebra_sweeps": f"{_Z}:177",
+    "zebra_smooth_restrict": f"{_Z}:379",
+    "prolong_zebra_smooth": f"{_Z}:506",
+    "prolong_zebra_smooth_resnorm": f"{_Z}:506",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
+                          else "lines.cu" if REPLACES[name].startswith(_Z)
                           else "vartransfer3d.cu" if REPLACES[name]
                           .startswith(_VT3)
                           else "stencil3d.cu" if REPLACES[name] == _S3
@@ -1430,8 +1454,8 @@ def front_door3(path, fn, setup):
             torch.cuda.max_memory_allocated() - base)
 
 
-def run_line(label, res, secs, host, peak):
-    print(f"[var3d] {label}: {var_state(res)} after {res.iterations} "
+def run_line(label, res, secs, host, peak, tag="var3d"):
+    print(f"[{tag}] {label}: {var_state(res)} after {res.iterations} "
           f"iterations, history {hist_str(res)}; seconds for one call "
           f"{secs:.3f} (host set-up {host:.3f}); peak device memory of the "
           f"call {peak / 2 ** 30:.2f} GiB")
@@ -1598,6 +1622,366 @@ def phase_slice_var3(prob, host_secs, setup_secs):
           f"err {err:.3e}")
     check(r5.converged and err <= 1e-8, f"level-5 3D var rel err {err}")
     summary["level5_f64_rel_err"] = err
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# 4h. The 2D anisotropic slice
+# ---------------------------------------------------------------------------
+
+ANISO_LEVEL = 12
+ANISO_TOL = 1e-5
+ANISO_ANGLE = float(np.radians(45.0))
+ANISO_EPS = dict(eps_x=1.0, eps_y=0.05)
+# Launches per cycle at 4097^2: 8 fused pairs (K1z and K2z, 3 launches
+# each; the finest K2z-resnorm 5), and 512 -> 256 (Sc < S/2 + 128) unfused.
+ANISO_PER_CYCLE = dict(zebra_smooth_restrict=24, prolong_zebra_smooth=21,
+                       prolong_zebra_smooth_resnorm=5, zebra_sweeps=4,
+                       restrict_fw=1, prolong_add=1)
+# (n, S) of the level-13 operator the zebra smoother is checked on alone.
+ZEBRA13 = (2 ** 13, 8448)
+# The zebra_y routes' solutions at 4097^2 differ by the float32 floor of
+# the h^2-scaled right-hand side (a few 1e-4 of max |u|); a wrong
+# transposition would differ by O(1).
+ZEBRA_Y_DU = 2e-3
+
+
+def aniso_config(use_kernels, level=None, **kw):
+    """benchmarks/bench_families.py's rotated-anisotropy schedule: zebra_x
+    (1, 1), coarsest level 3 (a dense coarse inverse at 9^2), at
+    ``ANISO_LEVEL`` unless another level is given."""
+    import tpu_multigrid_torch as tmg
+    fields = dict(finest_level=ANISO_LEVEL if level is None else level,
+                  coarsest_level=3, nu1=1, nu2=1, smoother="zebra_x",
+                  use_kernels=use_kernels)
+    fields.update(kw)
+    return tmg.MultigridConfig(**fields)
+
+
+def aniso_forcing(x, y):
+    """A forcing that is not symmetric in (x, y), so that the zebra_y
+    route's transposition shows."""
+    return 4.0 + 3.0 * x - y * y
+
+
+def aniso_host_setup():
+    return HostSetup("tpu_multigrid_torch.problems.anisotropic",
+                     "build_anisotropic_hierarchy")
+
+
+def aniso_setup():
+    """The 4097^2 rotated-anisotropy hierarchy (Galerkin coarse operators,
+    levels padded to 256), built once on the host and uploaded; shared by
+    the kernel checks, the plain path, the fixed cycles and the times.
+    (problem, host seconds, seconds with the upload)."""
+    import tpu_multigrid_torch as tmg
+    with aniso_host_setup() as host:
+        t0 = time.perf_counter()
+        prob = tmg.AnisotropicPoissonProblem(
+            aniso_config(True), **ANISO_EPS, angle=ANISO_ANGLE, device=DEVICE,
+            align=256, min_pad_level=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    print(f"[aniso] set-up of the {2 ** ANISO_LEVEL + 1}^2 hierarchy: host "
+          f"build {host.seconds:.3f} s, with the upload {secs:.3f} s; levels "
+          f"(n, S) {[(op.n, op.S) for op in prob.hierarchy.levels]}")
+    return prob, host.seconds, secs
+
+
+def zebra_planes(op):
+    """The zebra kernels' (9, S, S) view of a 9-point operator."""
+    return op.coef.reshape(9, op.S, op.S)
+
+
+def seeded_zebra_planes(S, n, gen):
+    """(9, S, S) planes of a nonsymmetric 9-point operator from a seed:
+    off-diagonals in (-1.25, -0.25], the centre (plane 4) in [8, 9), zero
+    outside the interior.  Every line's tridiagonal system is diagonally
+    dominant (PCR does not pivot)."""
+    from tpu_multigrid_torch.core import ops
+    c = -0.25 - torch.rand((9, S, S), generator=gen, device=DEVICE)
+    c[4] = 8.0 + torch.rand((S, S), generator=gen, device=DEVICE)
+    return torch.where(ops.interior_mask(S, n, c.device), c, 0.0)
+
+
+def check_zebra(errs, coef, S, Sc, n, gen):
+    """The zebra smoother, K1z, K2z and K2z-resnorm on ``coef``, 1 and 2
+    sweeps, against their plain versions: bitwise, the norm to 1e-4.
+    Returns the largest relative norm difference."""
+    from tpu_multigrid_torch.kernels import lines as Z
+    u, b = interior_randn(S, n, gen), interior_randn(S, n, gen)
+    ec = interior_randn(Sc, n // 2, gen)
+    rels = []
+    for sweeps in (1, 2):
+        track(errs, "zebra_sweeps", Z.zebra_sweeps(u, b, coef, n, sweeps),
+              Z.zebra_sweeps_plain(u, b, coef, n, sweeps))
+        for got, want in zip(
+                Z.zebra_smooth_restrict(u, b, coef, n, Sc, sweeps),
+                Z.zebra_smooth_restrict_plain(u, b, coef, n, Sc, sweeps)):
+            track(errs, "zebra_smooth_restrict", got, want)
+        a = (u, b, ec, coef, n, sweeps)
+        track(errs, "prolong_zebra_smooth", Z.prolong_zebra_smooth(*a),
+              Z.prolong_zebra_smooth_plain(*a))
+        ku, knorm = Z.prolong_zebra_smooth_resnorm(*a)
+        pu, pnorm = Z.prolong_zebra_smooth_resnorm_plain(*a)
+        track(errs, "prolong_zebra_smooth_resnorm", ku, pu)
+        rels.append(track_norm(errs, "prolong_zebra_smooth_resnorm", knorm,
+                               pnorm))
+    return max(rels)
+
+
+def phase_aniso_kernels(errs, prob):
+    """The zebra kernels against their plain versions at the finest pair
+    (4352 / 2304) on the rotated fine operator and on a seeded 9-point one,
+    at 2304 / 1280 and 1280 / 768 on the Galerkin levels 11 and 10, at the
+    bottom pair (256 / 256) on the Galerkin level 7 and a seeded operator;
+    then the smoother at S = 8448 on the closed-form level-13 operator."""
+    from tpu_multigrid_torch.kernels import lines as Z
+    from tpu_multigrid_torch.problems import anisotropic
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    lv = prob.hierarchy.levels
+    cases = [("rotated-12", lv[0], lv[1], False),
+             ("nonsym-9", lv[0], lv[1], True),
+             ("galerkin-11", lv[1], lv[2], False),
+             ("galerkin-10", lv[2], lv[3], False),
+             ("galerkin-7", lv[-5], lv[-4], False),
+             ("nonsym-9", lv[-5], lv[-4], True)]
+    for label, op, opc, seeded in cases:
+        coef = (seeded_zebra_planes(op.S, op.n, gen) if seeded
+                else zebra_planes(op))
+        rel = check_zebra(errs, coef, op.S, opc.S, op.n, gen)
+        print(f"[aniso-kernels] {label:11s} S={op.S:5d} Sc={opc.S:5d} "
+              f"n={op.n:5d}, 1 and 2 sweeps: zebra smoother, K1z, K2z, "
+              f"K2z-resnorm bitwise equal; resnorm norm rel {rel:.3g}")
+        del coef
+    torch.cuda.empty_cache()
+    n, S = ZEBRA13
+    check(Z.supported_zebra(S, 1, torch.float32),
+          f"the zebra smoother's gate refuses S = {S}")
+    t0 = time.perf_counter()
+    op13 = anisotropic.anisotropic_poisson_op(n, S, **ANISO_EPS,
+                                              angle=ANISO_ANGLE)
+    coef = torch.from_numpy(op13.coef).to(DEVICE).reshape(9, S, S)
+    host = time.perf_counter() - t0
+    del op13
+    u, b = interior_randn(S, n, gen), interior_randn(S, n, gen)
+    track(errs, "zebra_sweeps", Z.zebra_sweeps(u, b, coef, n, 1),
+          Z.zebra_sweeps_plain(u, b, coef, n, 1))
+    print(f"[aniso-kernels] level-13 operator S={S} n={n} (built and "
+          f"uploaded in {host:.3f} s), 1 sweep: zebra smoother bitwise equal")
+    del u, b, coef
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def aniso_counts(hier, cycles, injection=False):
+    """Launches of ``cycles`` zebra (1, 1) cycles over ``hier``: K1z and K2z
+    on each pair the fused gate takes (K2z-resnorm on the finest), else the
+    zebra smoother before and after, the full-weighting restriction kernel
+    and the prolong-add kernel.  With injection restriction every pair runs
+    unfused and restricts in plain torch."""
+    from tpu_multigrid_torch.kernels import lines as Z
+    want = {}
+
+    def add(name, k):
+        want[name] = want.get(name, 0) + cycles * k
+    for k, (op, opc) in enumerate(zip(hier.levels, hier.levels[1:])):
+        if not injection and Z.supported_zebra_fused(op.S, opc.S, 1,
+                                                     torch.float32):
+            add("zebra_smooth_restrict", Z.launches("zebra_smooth_restrict",
+                                                    1))
+            k2 = ("prolong_zebra_smooth_resnorm" if k == 0
+                  else "prolong_zebra_smooth")
+            add(k2, Z.launches(k2, 1))
+        else:
+            add("zebra_sweeps", 2 * Z.launches("zebra_sweeps", 1))
+            if not injection:
+                add("restrict_fw", 1)
+            add("prolong_add", 1)
+    return expect(**want)
+
+
+def nine_point_matrix(op):
+    """The interior matrix of a float64 9-point operator on the card
+    (``coef[di + 1, dj + 1]`` couples u[i + di, j + dj]), as a scipy CSC
+    matrix in row-major interior order."""
+    import scipy.sparse as sp
+    n, m = op.n, op.n - 1
+    coef = op.coef.cpu().numpy()[:, :, 1:n, 1:n]
+    idx = np.arange(m * m).reshape(m, m)
+    rows, cols, vals = [], [], []
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            src = (slice(max(0, -di), m - max(0, di)),
+                   slice(max(0, -dj), m - max(0, dj)))
+            dst = (slice(max(0, di), m + min(0, di)),
+                   slice(max(0, dj), m + min(0, dj)))
+            rows.append(idx[src].ravel())
+            cols.append(idx[dst].ravel())
+            vals.append(coef[di + 1, dj + 1][src].ravel())
+    return sp.csc_matrix((np.concatenate(vals),
+                          (np.concatenate(rows), np.concatenate(cols))),
+                         shape=(m * m, m * m))
+
+
+def phase_aniso_slice(prob, host_secs, setup_secs):
+    """The 2D anisotropic slice, each path with launch counts set to 0 just
+    before it and checked exactly after."""
+    import scipy.sparse.linalg as spl
+
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import kernels
+    hier = prob.hierarchy
+    n12 = 2 ** ANISO_LEVEL
+    summary = {}
+    per_cycle = expect(**ANISO_PER_CYCLE)
+    check(aniso_counts(hier, 1) == per_cycle,
+          f"launches per cycle {aniso_counts(hier, 1)}, expected {per_cycle}")
+
+    def door(path, cfg, **kw):
+        return front_door3(path, lambda: tmg.solve_anisotropic(
+            ANISO_LEVEL, angle=ANISO_ANGLE, coarsening="full", config=cfg,
+            device=DEVICE, **kw), aniso_host_setup())
+
+    # 1. The front door to tol on the kernels (its own set-up), and the plain
+    # path over the shared hierarchy.
+    res, secs, host, peak = door("aniso-12", aniso_config(True), **ANISO_EPS,
+                                 tol=ANISO_TOL)
+    it = res.iterations
+    got = PATH_COUNTS["aniso-12"]
+    check(got == aniso_counts(hier, it), f"solve_anisotropic({ANISO_LEVEL}) "
+          f"launches {got}, expected {aniso_counts(hier, it)}")
+    check(tuple(res.u.shape) == (hier.levels[0].S,) * 2
+          and bool(torch.isfinite(res.u).all())
+          and (res.converged or res.stalled),
+          f"solve_anisotropic: shape {tuple(res.u.shape)}, {var_state(res)}")
+    summary["kernels"] = run_line(
+        f"solve_anisotropic({ANISO_LEVEL}, 45 degrees, eps 1 / 0.05, "
+        f"tol={ANISO_TOL:g}), kernels", res, secs, host, peak, tag="aniso")
+    print(f"[aniso] launches {nonzero(got)}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rp = tmg.solve_until_tol(hier, aniso_config(False), prob.rhs(),
+                             tol=ANISO_TOL)
+    torch.cuda.synchronize()
+    secs_p = time.perf_counter() - t0
+    check(set(kernels.launch_counts().values()) == {0},
+          "the plain anisotropic path launched kernels")
+    summary["plain"] = run_line(
+        "plain path on the shared hierarchy (set-up: the shared build, "
+        "peak: the solve alone)", rp, setup_secs + secs_p, host_secs,
+        torch.cuda.max_memory_allocated() - base, tag="aniso")
+    check(abs(rp.iterations - it) <= 1 and (rp.converged or rp.stalled)
+          and float(rp.res_history[0]) == float(res.res_history[0]),
+          f"plain anisotropic path: {var_state(rp)} in {rp.iterations}, "
+          f"kernels {it}")
+    du = float((res.u - rp.u).abs().max()) / float(rp.u.abs().max())
+    print(f"[aniso] max |u_kernels - u_plain| / max|u_plain| = {du:.3e}")
+    del res, rp
+    torch.cuda.empty_cache()
+
+    # 2. 10 fixed cycles from a seeded random right-hand side: the mean
+    # reduction per cycle, (r_10 / r_0)^(1/10), is below 0.5 on both paths
+    # (the bound of the JAX package's test_45deg_usable_rate).
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    br = interior_randn(hier.levels[0].S, n12, gen)
+    fk = drive("aniso-12-fixed", lambda: tmg.solve_fixed(
+        hier, aniso_config(True), br, 10))
+    got = PATH_COUNTS["aniso-12-fixed"]
+    check(got == aniso_counts(hier, 10), f"fixed-cycle anisotropic launches "
+          f"{got}, expected {aniso_counts(hier, 10)}")
+    fp = tmg.solve_fixed(hier, aniso_config(False), br, 10)
+    hk, hp = fk.res_history.numpy(), fp.res_history.numpy()
+    rate_k = float(hk[10] / hk[0]) ** 0.1
+    rate_p = float(hp[10] / hp[0]) ** 0.1
+    print(f"[aniso] 10 fixed cycles, random rhs: kernels {hist_str(fk)}; "
+          f"plain {hist_str(fp)}; mean reduction per cycle: kernels "
+          f"{rate_k:.4f}, plain {rate_p:.4f}")
+    check(np.allclose(hk[:4], hp[:4], rtol=1e-3, atol=0)
+          and rate_k < 0.5 and rate_p < 0.5,
+          "random-rhs anisotropic histories differ beyond rtol 1e-3, or a "
+          "path reduces by 0.5 or more per cycle")
+    summary["random_rhs_rate"] = {"kernels": rate_k, "plain": rate_p}
+
+    # 3. The unfused route: injection restriction, 2 cycles, where the zebra
+    # smoother kernel and the prolong-add kernel run on every pair.
+    inj = aniso_config(True, restriction="injection")
+    ri = drive("aniso-12-injection", lambda: tmg.solve_fixed(hier, inj, br,
+                                                             2))
+    got = PATH_COUNTS["aniso-12-injection"]
+    want = aniso_counts(hier, 2, injection=True)
+    pairs = len(hier.levels) - 1
+    check(got == want and want["zebra_sweeps"] == 2 * pairs * 4
+          and want["prolong_add"] == 2 * pairs,
+          f"injection launches {got}, expected {want}")
+    rip = tmg.solve_fixed(hier, dataclasses.replace(inj, use_kernels=False),
+                          br, 2)
+    hk, hp = ri.res_history.numpy(), rip.res_history.numpy()
+    print(f"[aniso] injection, 2 cycles: kernels {hist_str(ri)}, plain "
+          f"{hist_str(rip)}; launches {nonzero(got)}")
+    check(np.allclose(hk, hp, rtol=1e-3, atol=0) and np.isfinite(hk).all(),
+          "injection: histories differ beyond rtol 1e-3 or are not finite")
+    del fk, fp, ri, rip, br
+    torch.cuda.empty_cache()
+
+    # 4. The zebra_y route: strong coupling in y; with the kernels the door
+    # solves the transposed problem on the zebra_x kernels and transposes
+    # back, the plain path runs zebra_y itself.  Each with its own set-up.
+    runs = {}
+    for use in (True, False):
+        path = "aniso-12-zebra_y" + ("" if use else "-plain")
+        runs[use] = door(path, aniso_config(use, smoother="zebra_y"),
+                         eps_x=0.05, eps_y=1.0, forcing=aniso_forcing,
+                         tol=ANISO_TOL)
+        r = runs[use][0]
+        got = PATH_COUNTS[path]
+        want = aniso_counts(hier, r.iterations) if use else expect()
+        check(got == want, f"{path} launches {got}, expected {want}")
+        check(bool(torch.isfinite(r.u).all()) and (r.converged or r.stalled),
+              f"{path}: {var_state(r)}")
+        route = "kernels (transposed)" if use else "plain"
+        summary["zebra_y_" + ("kernels" if use else "plain")] = run_line(
+            f"zebra_y, eps 0.05 / 1, {route}", *runs[use], tag="aniso")
+    rk, rp = runs[True][0], runs[False][0]
+    uk = tmg.extract_solution(rk.u, n12)
+    up = tmg.extract_solution(rp.u, n12)
+    du = float((uk - up).abs().max()) / float(up.abs().max())
+    print(f"[aniso] zebra_y: max |u_kernels - u_plain| / max|u_plain| = "
+          f"{du:.3e}")
+    check(abs(rk.iterations - rp.iterations) <= 1 and du <= ZEBRA_Y_DU,
+          f"zebra_y routes: iterations {rk.iterations} / {rp.iterations}, "
+          f"solutions differ by {du:.3e}")
+    del runs, rk, rp, uk, up
+    torch.cuda.empty_cache()
+
+    # 5. Level 6 in float64 (no kernel takes f64; a smoothed coarsest level,
+    # as the coarse inverse is kept in float32) against scipy's sparse
+    # direct solve of the same 9-point system.
+    c6 = aniso_config(False, 6, dtype=torch.float64, coarse_solver="smooth",
+                      coarse_smooth_sweeps=4)
+    run6 = front_door3("aniso-6-f64", lambda: tmg.solve_anisotropic(
+        6, **ANISO_EPS, angle=ANISO_ANGLE, coarsening="full", config=c6,
+        tol=1e-10, device=DEVICE), aniso_host_setup())
+    r6 = run6[0]
+    check(PATH_COUNTS["aniso-6-f64"] == expect(),
+          "the float64 level-6 solve launched kernels")
+    summary["level6_f64"] = run_line("level 6, float64, tol 1e-10", *run6,
+                                      tag="aniso")
+    p6 = tmg.AnisotropicPoissonProblem(c6, **ANISO_EPS, angle=ANISO_ANGLE,
+                                       device=DEVICE)
+    inner = (slice(1, 64),) * 2
+    ref = spl.spsolve(nine_point_matrix(p6.finest),
+                      p6.rhs()[inner].cpu().reshape(-1).numpy())
+    err = float(np.abs(r6.u[inner].cpu().reshape(-1).numpy() - ref).max()
+                / np.abs(ref).max())
+    print(f"[aniso] level 6, float64: vs scipy sparse direct solve: rel err "
+          f"{err:.3e}")
+    check(r6.converged and err <= 1e-8, f"level-6 anisotropic rel err {err}")
+    summary["level6_f64_rel_err"] = err
     return summary
 
 
@@ -1823,7 +2207,7 @@ def cells2(S, Sc, n):
             (n // 2 - 1) ** 2)
 
 
-def phase_times(card, prob_var, prob_var3):
+def phase_times(card, prob_var, prob_var3, prob_aniso):
     import tpu_multigrid_torch as tmg
     from tpu_multigrid_torch import precision
     from tpu_multigrid_torch.core import ops
@@ -1991,6 +2375,7 @@ def phase_times(card, prob_var, prob_var3):
     var_times(card, prob_var, times, work)
     times3d(card, times, work)
     var3_times(card, prob_var3, times, work)
+    aniso_times(card, prob_aniso, times, work)
     return times, work, library
 
 
@@ -2060,6 +2445,74 @@ def var_times(card, prob, times, work):
     torch.cuda.empty_cache()
 
 
+# Float32 operations per solved node, counted from lines.cu: the right-hand
+# side (6 multiplies, 6 adds, 1 subtraction), each PCR step (2 divisions,
+# 6 multiplies, 4 adds), the closing division; the 9-point residual (9
+# multiplies, 8 adds, 1 subtraction).
+ZRHS, ZPCR, ZRES = 13, 12, 18
+
+
+def zebra_work(S, Sc, n, sweeps):
+    """(bytes, operations) of the zebra kernels, by the rows 8-10 rule: u
+    over its (n+1)^2 reach (the interior for K2z, which masks u + P e_c
+    first), b over the interior, the 9 planes over the reach, e_c over the
+    coarse reach, every output in full.  The operations count the interior
+    nodes, each PCR over ceil(log2 S) steps."""
+    N, Nc, reach, inner, creach, cinner = cells2(S, Sc, n)
+    steps = (S - 1).bit_length()
+    sweep = sweeps * (ZRHS + steps * ZPCR + 1) * inner
+    planes = 9 * reach
+    k2 = 4 * (2 * inner + planes + creach + N)
+    return {
+        "zebra_sweeps": (4 * (reach + inner + planes + N), sweep),
+        "zebra_smooth_restrict": (4 * (reach + inner + planes + N + Nc),
+                                  sweep + ZRES * inner + FW * cinner),
+        "prolong_zebra_smooth": (k2, sweep + PRO * inner),
+        "prolong_zebra_smooth_resnorm": (k2 + 4,
+                                         sweep + (PRO + ZRES + 2) * inner)}
+
+
+def aniso_times(card, prob, times, work):
+    """The 4097^2 anisotropic V-cycle on both paths over the shared
+    hierarchy, and each zebra kernel at the finest pair (the rotated
+    operator, 1 sweep) beside its plain version.  No PyTorch call solves
+    batched tridiagonal systems: their library time is null."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.kernels import lines as Z
+    hier = prob.hierarchy
+    b = prob.rhs()
+    u = torch.zeros_like(b)
+    dof = (2 ** ANISO_LEVEL - 1) ** 2
+    for use in (True, False):
+        cfg = aniso_config(use)
+        ms = cuda_ms(lambda: tmg.cycle(hier, cfg, u, b))
+        times["aniso_vcycle" if use else "aniso_vcycle_plain"] = ms
+        print(f"[times] anisotropic V-cycle at {2 ** ANISO_LEVEL + 1}^2, "
+              f"zebra_x (1,1), {'kernels' if use else 'plain  '}: {ms:.3f} "
+              f"ms, {dof / (ms * 1e-3):.4g} DOF/s  ({card})")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    f, g = hier.levels[:2]
+    S, Sc, n, coef = f.S, g.S, f.n, zebra_planes(f)
+    u, b = interior_randn(S, n, gen), interior_randn(S, n, gen)
+    ec = interior_randn(Sc, n // 2, gen)
+    cases = {"zebra_sweeps": (u, b, coef, n, 1),
+             "zebra_smooth_restrict": (u, b, coef, n, Sc, 1),
+             "prolong_zebra_smooth": (u, b, ec, coef, n, 1),
+             "prolong_zebra_smooth_resnorm": (u, b, ec, coef, n, 1)}
+    work.update(zebra_work(S, Sc, n, 1))
+    for name, args in cases.items():
+        kern, plain = getattr(Z, name), getattr(Z, name + "_plain")
+        times[name] = (cuda_ms(lambda: kern(*args)),
+                       cuda_ms(lambda: plain(*args)))
+        k, p = times[name]
+        bms, by = bound(*work[name])
+        print(f"[times] {name:28s} S={S}: kernel {k:.3f} ms, plain {p:.3f} "
+              f"ms, bound {bms:.3f} ms ({by})  ({card})")
+    del u, b, ec, cases
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2081,7 +2534,10 @@ def main():
     prob_var3, host3, setup3 = var3_setup()
     phase_var_kernels3d(errs, prob_var3)
     record_var3d = phase_slice_var3(prob_var3, host3, setup3)
-    times, work, library = phase_times(card, prob_var, prob_var3)
+    prob_aniso, host_a, setup_a = aniso_setup()
+    phase_aniso_kernels(errs, prob_aniso)
+    record_aniso = phase_aniso_slice(prob_aniso, host_a, setup_a)
+    times, work, library = phase_times(card, prob_var, prob_var3, prob_aniso)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
     for name, n in launches.items():
@@ -2089,6 +2545,7 @@ def main():
     print(f"[record] summary: {json.dumps(record)}")
     print(f"[refined3d] summary: {json.dumps(record3d)}")
     print(f"[var3d] summary: {json.dumps(record_var3d)}")
+    print(f"[aniso] summary: {json.dumps(record_aniso)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

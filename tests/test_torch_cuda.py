@@ -583,3 +583,132 @@ def test_var3_kernel_path_solve_matches_plain_path(gen):
     assert kernels.launch_counts() == counts
     torch.testing.assert_close(rk.res_history, rp.res_history, rtol=1e-3,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The zebra kernels: the zebra_x smoother, K1z and K2z
+# ---------------------------------------------------------------------------
+
+def _zebra_planes(kind, n, S, gen):
+    """(9, S, S) planes: the rotated anisotropic operator (45 degrees, eps
+    1 / 0.05) or a diagonally dominant 9-point operator from a seed."""
+    import math
+
+    from tpu_multigrid_torch.problems import anisotropic
+    if kind == "rotated":
+        op = anisotropic.anisotropic_poisson_op(n, S, 1.0, 0.05,
+                                                math.radians(45))
+        return torch.from_numpy(op.coef).reshape(9, S, S).cuda()
+    c = -0.25 - torch.rand((9, S, S), generator=gen, device="cuda")
+    c[4] = 8.0 + torch.rand((S, S), generator=gen, device="cuda")
+    return torch.where(ops.interior_mask(S, n, c.device), c, 0.0)
+
+
+# (S, Sc, n): the bottom pair and a padded mid pair.
+ZPAIRS = [(256, 256, 200), (1280, 768, 1024)]
+
+
+@pytest.mark.parametrize("S,Sc,n", ZPAIRS)
+@pytest.mark.parametrize("kind", ["rotated", "seeded"])
+@pytest.mark.parametrize("sweeps", [1, 2])
+def test_zebra_kernels_match_plain_bitwise(gen, S, Sc, n, kind, sweeps):
+    from tpu_multigrid_torch.kernels import lines as Z
+    coef = _zebra_planes(kind, n, S, gen)
+    u, b = _interior(S, n, gen), _interior(S, n, gen)
+    ec = _interior(Sc, n // 2, gen)
+    assert torch.equal(Z.zebra_sweeps(u, b, coef, n, sweeps),
+                       Z.zebra_sweeps_plain(u, b, coef, n, sweeps))
+    for got, want in zip(Z.zebra_smooth_restrict(u, b, coef, n, Sc, sweeps),
+                         Z.zebra_smooth_restrict_plain(u, b, coef, n, Sc,
+                                                       sweeps)):
+        assert torch.equal(got, want)
+    args = (u, b, ec, coef, n, sweeps)
+    want = Z.prolong_zebra_smooth_plain(*args)
+    assert torch.equal(Z.prolong_zebra_smooth(*args), want)
+    ku, knorm = Z.prolong_zebra_smooth_resnorm(*args)
+    _, pnorm = Z.prolong_zebra_smooth_resnorm_plain(*args)
+    assert torch.equal(ku, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-5, atol=0)
+    assert torch.equal(Z.prolong_zebra_smooth_resnorm(*args)[1], knorm)
+
+
+def test_zebra_launches_are_counted_and_bad_inputs_raise(gen):
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import lines as Z
+    S, n = 256, 200
+    coef = _zebra_planes("seeded", n, S, gen)
+    u, b = _interior(S, n, gen), _interior(S, n, gen)
+    assert _build.lib().zebra_max_line == Z._SMEM_BYTES // 16
+    kernels.reset_launch_counts()
+    Z.zebra_sweeps(u, b, coef, n, 2)
+    Z.zebra_smooth_restrict(u, b, coef, n, S, 1)
+    Z.prolong_zebra_smooth(u, b, u, coef, n, 1)
+    Z.prolong_zebra_smooth_resnorm(u, b, u, coef, n, 3)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "zebra_sweeps": 4, "zebra_smooth_restrict": 3,
+        "prolong_zebra_smooth": 3, "prolong_zebra_smooth_resnorm": 9}
+    with pytest.raises(ValueError):
+        Z.zebra_sweeps(u, b, coef.cpu(), n, 1)
+    with pytest.raises(ValueError):
+        Z.zebra_sweeps(u[:200, :200].contiguous(), b[:200, :200].contiguous(),
+                       coef[:, :200, :200].contiguous(), n, 1)
+    with pytest.raises(ValueError):
+        Z.zebra_smooth_restrict(u, b, coef, n, 64, 1)
+    with pytest.raises(NotImplementedError):
+        Z.zebra_sweeps(u.double(), b.double(), coef.double(), n, 1)
+    assert kernels.launch_counts() == counts
+
+
+def zebra_path_launches(hier, cycles, sweeps=1):
+    """Launches of ``cycles`` cycles of the zebra_x path (nu1 = nu2 =
+    ``sweeps``): K1z and K2z on each pair the fused gate takes (K2z-resnorm
+    on the finest), else the zebra smoother before and after, the
+    restriction and the prolong-add kernels."""
+    from tpu_multigrid_torch.kernels import lines as Z
+    want = {}
+
+    def add(name, k):
+        want[name] = want.get(name, 0) + cycles * k
+    for k, (op, opc) in enumerate(zip(hier.levels, hier.levels[1:])):
+        if Z.supported_zebra_fused(op.S, opc.S, sweeps, torch.float32):
+            add("zebra_smooth_restrict",
+                Z.launches("zebra_smooth_restrict", sweeps))
+            k2 = "prolong_zebra_smooth_resnorm" if k == 0 \
+                else "prolong_zebra_smooth"
+            add(k2, Z.launches(k2, sweeps))
+        else:
+            add("zebra_sweeps", 2 * Z.launches("zebra_sweeps", sweeps))
+            add("restrict_fw", 1)
+            add("prolong_add", 1)
+    return want
+
+
+def test_zebra_kernel_path_solve_matches_plain_path(gen):
+    """solve_fixed at level 9, 45 degrees, zebra (1, 1), from a random
+    right-hand side: the pairs 768 -> 512 and 256 -> 256 fuse, 512 -> 256
+    (Sc < S/2 + 128) runs the zebra smoother and the transfer kernels;
+    exact launch counts, and histories to rtol 1e-3 over the first
+    cycles."""
+    import math
+    cfg = tmg.MultigridConfig(finest_level=9, coarsest_level=3,
+                              smoother="zebra_x", nu1=1, nu2=1,
+                              use_kernels=True)
+    prob = tmg.AnisotropicPoissonProblem(cfg, eps_x=1.0, eps_y=0.05,
+                                         angle=math.radians(45),
+                                         device="cuda", align=256,
+                                         min_pad_level=0)
+    b = _interior(prob.finest.S, prob.finest.n, gen)
+    kernels.reset_launch_counts()
+    rk = tmg.solve_fixed(prob.hierarchy, cfg, b, 4)
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(zebra_path_launches(prob.hierarchy, 4))
+    assert want["zebra_sweeps"] == 4 * 4 and want["restrict_fw"] == 4
+    assert counts == want
+    rp = tmg.solve_fixed(prob.hierarchy, dataclasses.replace(
+        cfg, use_kernels=False), b, 4)
+    assert kernels.launch_counts() == counts
+    torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
+                               rtol=1e-3, atol=0)
+    assert rk.res_history[4] < 0.1 * rk.res_history[0]

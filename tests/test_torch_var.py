@@ -196,10 +196,14 @@ def test_var_op_matches_jax_f64(kind):
 
 
 def test_var_op_unported_options_raise():
+    """Box operators are not ported yet; the zebra smoothers are
+    (tests/test_torch_aniso.py), and an unknown smoother raises."""
     t, _ = _op_pair("flux")
     z = torch.zeros((t.S, t.S), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        t.smooth(z, z, smoother="zebra_x", omega=1.0, sweeps=1)
+    assert torch.equal(t.smooth(z, z, smoother="zebra_x", omega=1.0,
+                                sweeps=1), z)
+    with pytest.raises(ValueError):
+        t.smooth(z, z, smoother="sor", omega=1.0, sweeps=1)
     with pytest.raises(NotImplementedError):
         operators.VarStencilOp(t.coef, t.inv_diag, t.n, t.S,
                                box=(0, 63, 1, 63))

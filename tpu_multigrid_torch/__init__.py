@@ -15,28 +15,34 @@ constant-coefficient path (``solve_poisson3d``: the 7-point and 19-point
 Mehrstellen stencils, FMG, refinement) with the 3D streaming smoother, K1_3
 and K2_3 as CUDA kernels; and the 3D variable-coefficient path
 (``solve_diffusion3d``, with an optional reaction term, and the variable-
-wind ``solve_convection_diffusion3d``) with K1v_3 and K2v_3 as CUDA kernels
+wind ``solve_convection_diffusion3d``) with K1v_3 and K2v_3 as CUDA kernels;
+and the 2D anisotropic path (``solve_anisotropic``: a rotated constant
+tensor, Galerkin coarse operators, zebra line relaxation on full
+coarsening) with the zebra smoother, K1z and K2z as CUDA kernels
 (:mod:`tpu_multigrid_torch.kernels`).  The front doors run on the card
 unless the caller passes ``device``.
 """
 
-from .api import (extract_solution, solve_convection_diffusion3d,
-                  solve_diffusion, solve_diffusion3d, solve_helmholtz,
-                  solve_poisson, solve_poisson3d)
+from .api import (extract_solution, solve_anisotropic,
+                  solve_convection_diffusion3d, solve_diffusion,
+                  solve_diffusion3d, solve_helmholtz, solve_poisson,
+                  solve_poisson3d)
 from .config import REFERENCE_CONFIG, MultigridConfig, default_device
 from .core import ops
 from .core.grids import (Hierarchy, build_galerkin_hierarchy,
                          build_poisson_hierarchy)
 from .core.operators import VarStencilOp, VarStencilOp3D
 from .cycles import SolveResult, cycle, fmg, solve_fixed, solve_until_tol
-from .problems import (ConvectionDiffusion3DProblem, Diffusion3DProblem,
+from .problems import (AnisotropicPoissonProblem,
+                       ConvectionDiffusion3DProblem, Diffusion3DProblem,
                        DiffusionProblem, HelmholtzProblem, Poisson3DProblem,
                        Poisson4_3DProblem, PoissonProblem)
 
 __all__ = [
     "MultigridConfig", "REFERENCE_CONFIG", "default_device", "solve_poisson",
     "solve_diffusion", "solve_helmholtz", "solve_poisson3d",
-    "solve_diffusion3d", "solve_convection_diffusion3d", "extract_solution",
+    "solve_diffusion3d", "solve_convection_diffusion3d", "solve_anisotropic",
+    "extract_solution", "AnisotropicPoissonProblem",
     "PoissonProblem", "DiffusionProblem", "HelmholtzProblem",
     "Poisson3DProblem", "Poisson4_3DProblem", "Diffusion3DProblem",
     "ConvectionDiffusion3DProblem", "Hierarchy", "build_poisson_hierarchy",

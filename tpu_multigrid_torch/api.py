@@ -1,6 +1,8 @@
 """Front-door solve API: single-device Dirichlet solves of Poisson (2D and
-3D), variable-coefficient diffusion (2D and 3D), shifted-Poisson
-(Helmholtz) and 3D convection-diffusion problems.
+3D: ``solve_poisson``, ``solve_poisson3d``), variable-coefficient diffusion
+(``solve_diffusion``, ``solve_diffusion3d``), shifted Poisson
+(``solve_helmholtz``), anisotropic Poisson (``solve_anisotropic``) and 3D
+convection-diffusion (``solve_convection_diffusion3d``) problems.
 
 Every entry runs on ``device``; ``device=None`` means the card
 (``config.default_device``), and raises where there is none.
@@ -9,12 +11,14 @@ Every entry runs on ``device``; ``device=None`` means the card
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Union
 
 import torch
 
 from .config import MultigridConfig, default_device
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
+from .problems.anisotropic import AnisotropicPoissonProblem
 from .problems.convection3d import ConvectionDiffusion3DProblem
 from .problems.diffusion import DiffusionProblem
 from .problems.diffusion3d import Diffusion3DProblem
@@ -147,6 +151,77 @@ def solve_helmholtz(
                                device=device, **_pad_kw(config))
     return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
                 boundary=boundary)
+
+
+def solve_anisotropic(
+    finest_level: int = 10,
+    *,
+    eps_x: float = 1.0,
+    eps_y: float = 1.0,
+    angle: float = 0.0,
+    coarsening: str = "auto",
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 4.0,
+    boundary: Optional[Union[float, Callable]] = None,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -div(K grad u) = forcing with the constant tensor ``K =
+    R(angle) diag(eps_x, eps_y) R(angle)^T`` (``angle = 0``: -(eps_x u_xx +
+    eps_y u_yy)) on ``device`` (the card when None).
+
+    ``coarsening="full"`` is the standard hierarchy with Galerkin coarse
+    operators, robust at strong anisotropy with ``config.smoother=
+    "zebra_x"`` (eps_x >> eps_y) or ``"zebra_y"``.  ``"auto"`` resolves as
+    in the JAX package: semi-coarsening when the anisotropy exceeds 4:1, the
+    grid is not rotated and no zebra smoother is configured, full otherwise.
+    With the kernels on, ``zebra_y`` solves the transposed problem with
+    ``zebra_x`` (the same eps, ``angle' = pi/2 - angle``, forcing and
+    boundary with swapped arguments) and transposes back, as the JAX
+    package does.  ``boundary`` lifts inhomogeneous Dirichlet values.  The
+    default config is the other 2D doors' (kernels off).
+
+    Not ported yet (each raises ``NotImplementedError``): semi-coarsening
+    (``coarsening="semi"``, or ``"auto"`` resolving to it), ``mesh``, and a
+    ``smooth_dtype`` other than ``dtype``.
+    """
+    config = _level_config(config, finest_level)
+    _check_single_device(config, mesh)
+    if coarsening == "auto":
+        ratio = max(eps_x, eps_y) / max(min(eps_x, eps_y), 1e-300)
+        zebra = config.smoother in ("zebra_x", "zebra_y")
+        coarsening = "semi" if (ratio > 4.0 and not zebra
+                                and angle == 0.0) else "full"
+    transpose = (coarsening == "full" and config.smoother == "zebra_y"
+                 and config.use_kernels)
+    if transpose:
+        # The zebra kernels take lines along x only: transposing the grid
+        # maps K to P K P^T, which is the same (eps_x, eps_y) at angle
+        # pi/2 - angle; the forcing and boundary swap their arguments.
+        config = dataclasses.replace(config, smoother="zebra_x")
+        angle = math.pi / 2 - angle
+        forcing = _swap_args(forcing)
+        boundary = _swap_args(boundary)
+    problem = AnisotropicPoissonProblem(config, eps_x=eps_x, eps_y=eps_y,
+                                        forcing=forcing,
+                                        coarsening=coarsening, angle=angle,
+                                        device=device, **_pad_kw(config))
+    res = _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
+               boundary=boundary)
+    if transpose:
+        res = dataclasses.replace(res, u=res.u.T.contiguous())
+    return res
+
+
+def _swap_args(field):
+    """f(y, x) for a callable field f(x, y); a constant as it is."""
+    if callable(field):
+        return lambda x, y: field(y, x)
+    return field
 
 
 def solve_poisson3d(

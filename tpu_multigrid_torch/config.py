@@ -39,8 +39,9 @@ class MultigridConfig:
     * ``omega``: weighted-Jacobi damping.
     * ``smoother``: ``"jacobi"``, ``"rbgs"`` or ``"chebyshev"`` (Jacobi steps
       with the Chebyshev root reciprocals as per-step weights on the
-      interval ``[cheb_lo, 2]``); ``"zebra_x"``/``"zebra_y"`` validate but
-      have no operator in this package yet.
+      interval ``[cheb_lo, 2]``); ``"zebra_x"`` / ``"zebra_y"``: zebra line
+      relaxation along x / y, for the variable-coefficient (9-point)
+      operators (``core.lines``).
     * ``coarse_solver``: ``"direct"`` = dense inverse applied as a matvec;
       ``"smooth"`` = ``coarse_smooth_sweeps`` extra sweeps.
     * ``fmg_rhs``: ``"restrict"`` restricts the fine RHS downward;

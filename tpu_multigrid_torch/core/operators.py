@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import ops, ops3d
+from .lines import zebra_sweeps
 
 
 class ConstStencilOp:
@@ -266,8 +267,10 @@ class VarStencilOp:
         if smoother == "rbgs":
             return self._rbgs(u, b, sweeps)
         if smoother in ("zebra_x", "zebra_y"):
-            raise NotImplementedError("line smoothers (zebra_x / zebra_y) "
-                                      "are not ported yet")
+            # Line relaxation along the strong axis, each line solved
+            # exactly by parallel cyclic reduction (core.lines).
+            return zebra_sweeps(self, u, b, sweeps,
+                                axis=1 if smoother == "zebra_x" else 0)
         raise ValueError(f"unknown smoother {smoother!r}")
 
     def _off_diag_apply(self, u):

@@ -18,7 +18,9 @@ the 3D transfers outside K1_3/K2_3 are plain torch, as in the JAX package;
 and the 3D variable-coefficient one: a flux-stencil or variable-wind pair
 that passes :func:`_use_var_super_kernels3` is K1v_3 and K2v_3, other such
 levels run their plain operators (the JAX package has no 3D var smoother
-kernel).
+kernel); and the zebra_x line smoother: a variable-coefficient pair that
+passes :func:`_use_zebra_super_kernels` is K1z and K2z, other kernel-sized
+levels run the zebra smoother kernel (``kernels.lines``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..core.operators import (ConstStencilOp, ConstStencilOp3D, VarStencilOp,
                               VarStencilOp3D)
 from ..kernels import stencil as _k
 from ..kernels import stencil3d as _k3
+from ..kernels import lines as _zl
 from ..kernels import transfer as _t
 from ..kernels import transfer3d as _t3
 from ..kernels import varstencil as _v
@@ -109,6 +112,11 @@ def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
     if _var_kernel_ok(op, cfg, u.dtype, sweeps):
         return _v.var_smooth(u, b, _v._flat_coef(op), op.n, sweeps, smoother,
                              omega)
+    if (cfg.use_kernels and isinstance(op, VarStencilOp)
+            and smoother == "zebra_x"
+            and cfg.effective_smooth_dtype == u.dtype
+            and _zl.supported_zebra(op.S, sweeps, u.dtype)):
+        return _zl.zebra_sweeps(u, b, _zebra_planes(op), op.n, sweeps)
     return op.smooth(u, b, smoother=smoother, omega=omega, sweeps=sweeps)
 
 
@@ -348,11 +356,47 @@ def _fused_k2v3(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
                                     omega)
 
 
+def _zebra_planes(op):
+    """The zebra kernels' (9, S, S) view of the operator's stencil."""
+    return op.coef.reshape(9, op.S, op.S)
+
+
+def _use_zebra_super_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
+    """Whether this level visit runs as K1z + K2z: a variable-coefficient
+    pair under the zebra_x smoother, full weighting and bilinear
+    prolongation, on the shapes ``kernels.lines.supported_zebra_fused``
+    takes."""
+    if not (cfg.use_kernels and isinstance(op, VarStencilOp)
+            and isinstance(opc, VarStencilOp)):
+        return False
+    if cfg.smoother != "zebra_x":
+        return False
+    if cfg.effective_smooth_dtype != dtype:
+        return False
+    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
+        return False
+    return _zl.supported_zebra_fused(op.S, opc.S, max(cfg.nu1, cfg.nu2),
+                                     dtype)
+
+
+def _fused_k1z(op, opc, cfg: MultigridConfig, u, b):
+    return _zl.zebra_smooth_restrict(u, b, _zebra_planes(op), op.n, opc.S,
+                                     cfg.nu1)
+
+
+def _fused_k2z(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
+    if resnorm:
+        return _zl.prolong_zebra_smooth_resnorm(u, b, ec, _zebra_planes(op),
+                                                op.n, cfg.nu2)
+    return _zl.prolong_zebra_smooth(u, b, ec, _zebra_planes(op), op.n,
+                                    cfg.nu2)
+
+
 def _level_visit_kernels(op, opc, cfg: MultigridConfig, dtype):
     """(K1, K2) of this level visit's fused pair, or None when it runs
     unfused, tested in the JAX package's order: the constant 2D pair, the
     variable-coefficient 2D one, the constant 3D one, the variable-
-    coefficient 3D one."""
+    coefficient 3D one, the zebra one."""
     if _use_super_kernels(op, opc, cfg, dtype):
         return _fused_k1, _fused_k2
     if _use_var_super_kernels(op, opc, cfg, dtype):
@@ -361,6 +405,8 @@ def _level_visit_kernels(op, opc, cfg: MultigridConfig, dtype):
         return _fused_k1_3d, _fused_k2_3d
     if _use_var_super_kernels3(op, opc, cfg, dtype):
         return _fused_k1v3, _fused_k2v3
+    if _use_zebra_super_kernels(op, opc, cfg, dtype):
+        return _fused_k1z, _fused_k2z
     return None
 
 

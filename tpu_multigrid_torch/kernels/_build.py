@@ -87,6 +87,13 @@ _SIGNATURES = {
     # u, b, ec, coef, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx,
     # n, steps, first_step, rbgs, nplanes, weights, count, stream
     "tmt_var_prolong_smooth3": ([_P] * 7 + [_I] * 11 + [_P, _I, _P], _I),
+    "tmt_zebra_max_line": ([], _I),
+    # u, b, coef, u_out, S, n, sweeps, stream
+    "tmt_zebra_sweeps": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    # u, b, coef, u_out, rc, S, Sc, n, sweeps, stream
+    "tmt_zebra_smooth_restrict": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    # u, b, ec, coef, u_out, partials, out_sum, S, Sc, n, sweeps, stream
+    "tmt_zebra_prolong_smooth": ([_P] * 7 + [_I] * 4 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -166,7 +173,7 @@ def lib() -> ctypes.CDLL:
     memory), ``stencil_max_steps`` (the most steps of one streaming-
     smoother launch), ``var_tile`` (the var kernels' tile edge) and
     ``var_max_halo`` (nplanes -> the deepest halo of a var kernel's
-    window)."""
+    window), ``zebra_max_line`` (the longest line a zebra block holds)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -185,6 +192,7 @@ def lib() -> ctypes.CDLL:
                                    for p in (5, 9)}
             handle.stencil3d_max_steps = handle.tmt_stencil3d_max_steps()
             handle.window3_max_halo = handle.tmt_window3_max_halo()
+            handle.zebra_max_line = handle.tmt_zebra_max_line()
             _lib = handle
     return _lib
 

@@ -1,3 +1,5 @@
+from .anisotropic import (AnisotropicPoissonProblem, anisotropic_poisson_op,
+                          build_anisotropic_hierarchy)
 from .convection3d import (ConvectionDiffusion3DProblem, Directional7Op,
                            convection_diffusion_op3)
 from .diffusion import DiffusionProblem, cell_coefficients
@@ -14,4 +16,6 @@ __all__ = ["PoissonProblem", "DiffusionProblem", "HelmholtzProblem",
            "mehrstellen_rhs3", "cell_coefficients", "helmholtz_op_host",
            "Diffusion3DProblem", "build_diffusion3d_hierarchy",
            "cell_coefficients3", "ConvectionDiffusion3DProblem",
-           "Directional7Op", "convection_diffusion_op3"]
+           "Directional7Op", "convection_diffusion_op3",
+           "AnisotropicPoissonProblem", "anisotropic_poisson_op",
+           "build_anisotropic_hierarchy"]
