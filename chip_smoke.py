@@ -73,13 +73,26 @@ Phases, each printing its own lines:
    kernels) against the plain zebra_y path, the unfused route (injection
    restriction), and level 6 in float64 against scipy's sparse direct
    solve.
-5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var and
-   anisotropic) and at 513^3 on both paths, one ts iteration at 16385^2 on
-   both paths, and each kernel beside its plain version (K1/K2/ds/ts at
-   S = 8448, the var and zebra kernels at 4352, the 3D ones at (528, 528,
-   640), the others at 16640), with CUDA
-   events (median of 7 after warm-up), and the one PyTorch call that
-   computes the same function where there is one.
+4i. The nonlinear FAS slice (benchmarks/bench_fas.py's Bratu lam = 4 and
+   quasilinear a = 1 + 2 u^2, Jacobi (2, 2)): K1f, K2f, K2f-resnorm and
+   K1f_3, K2f_3, K2f_3-resnorm, both families, 1-3 sweeps from a seeded u
+   (scale 0.1), bitwise against their plain versions (the norm to 1e-4) at
+   4352 / 2304, 2304 / 1280, 256 / 256, (528, 528, 640) / (272, 272, 384)
+   and (48, 48, 128) / (32, 32, 128); then, each with exact launch counts,
+   solve_bratu(12) and solve_quasilinear_diffusion(12) at 4097^2, the 513^3
+   solve_bratu(9, ndim=3) and the 257^3 quasilinear solve, each with the
+   door's defaults on the kernels and on the plain route (iterations within
+   1, seconds with set-up, peak device memory), solve_bratu(12,
+   use_fmg=True), solve_nonlinear_poisson(9) with a caller's phi = u^3
+   (no kernel launched; refused with use_kernels=True), and level 6 in
+   float64 against scipy's sparse Newton solve.
+5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var, anisotropic,
+   FAS Bratu and quasilinear) and at 513^3 (3D, 3D var, FAS Bratu) on both
+   paths, one ts iteration at 16385^2 on both paths, and each kernel beside
+   its plain version (K1/K2/ds/ts at S = 8448, the var, zebra and FAS
+   kernels at 4352, the 3D ones at (528, 528, 640), the others at 16640),
+   with CUDA events (median of 7 after warm-up), and the one PyTorch call
+   that computes the same function where there is one.
 
 Every path of phase 4 is driven with all launch counts set to 0 just
 before it and read just after.  Then one JSON line of kernel records, with
@@ -123,6 +136,8 @@ _S3 = "tpu_multigrid/kernels/stencil3d.py:240"
 _T3 = "tpu_multigrid/kernels/transfer3d.py"
 _VT3 = "tpu_multigrid/kernels/vartransfer3d.py"
 _Z = "tpu_multigrid/kernels/lines.py"
+_F = "tpu_multigrid/kernels/fas.py"
+_F3 = "tpu_multigrid/kernels/fas3d.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -157,10 +172,24 @@ REPLACES = {
     "zebra_smooth_restrict": f"{_Z}:379",
     "prolong_zebra_smooth": f"{_Z}:506",
     "prolong_zebra_smooth_resnorm": f"{_Z}:506",
+    "fas_smooth_restrict": f"{_F}:173",
+    "fas_prolong_smooth": f"{_F}:331",
+    "fas_prolong_smooth_resnorm": f"{_F}:331",
+    "qfas_smooth_restrict": f"{_F}:173",
+    "qfas_prolong_smooth": f"{_F}:331",
+    "qfas_prolong_smooth_resnorm": f"{_F}:331",
+    "fas_smooth_restrict3": f"{_F3}:161",
+    "fas_prolong_smooth3": f"{_F3}:338",
+    "fas_prolong_smooth_resnorm3": f"{_F3}:338",
+    "qfas_smooth_restrict3": f"{_F3}:161",
+    "qfas_prolong_smooth3": f"{_F3}:338",
+    "qfas_prolong_smooth_resnorm3": f"{_F3}:338",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
+                          else "fas3d.cu" if REPLACES[name].startswith(_F3)
+                          else "fas.cu" if REPLACES[name].startswith(_F)
                           else "lines.cu" if REPLACES[name].startswith(_Z)
                           else "vartransfer3d.cu" if REPLACES[name]
                           .startswith(_VT3)
@@ -1985,6 +2014,297 @@ def phase_aniso_slice(prob, host_secs, setup_secs):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 4i: the nonlinear FAS slice
+# ---------------------------------------------------------------------------
+
+FAS_LEVEL = 12
+FAS3_LEVEL = 9
+QUASI3_LEVEL = 8
+FAS_LAM, FAS_GAMMA = 4.0, 2.0
+# (S, Sc, n) of the 2D FAS kernel checks: the two finest pairs of the
+# 4097^2 solve (levels padded to 256) and the bottom pair.
+FAS_PAIRS = [(4352, 2304, 4096), (2304, 1280, 2048), (256, 256, 64)]
+# (shape, coarse shape, n) of the 3D checks: the finest pair of the 513^3
+# solve and the smallest 3D layout.
+FAS_PAIRS3 = [((528, 528, 640), (272, 272, 384), 512),
+              ((48, 48, 128), (32, 32, 128), 32)]
+# Fused pairs per cycle with the doors' Jacobi (2, 2): all 9 of the padded
+# 4097^2 hierarchy (levels 12 -> 3), 3 of the 513^3 one (9 -> 6; level 6
+# is 128 wide), 2 of the 257^3 one.
+FAS_PER_CYCLE = {FAS_LEVEL: 9, FAS3_LEVEL: 3, QUASI3_LEVEL: 2}
+
+
+def fas_nl(family):
+    """(entry prefix, nonlinearity arguments) of a family: Bratu with
+    lam = 4 (phi passed as phi and dphi), or a = 1 + 2 u^2."""
+    import tpu_multigrid_torch as tmg
+    if family == "bratu":
+        phi = tmg.BratuNonlinearity(FAS_LAM)
+        return "fas_", (phi, phi)
+    return "qfas_", (tmg.QuadraticCoefficient(FAS_GAMMA),)
+
+
+def fas_cases(family, suffix, u, b, ec, n, shape_c, sweeps):
+    """{entry: (kernel call, plain call)} of a family's three entries."""
+    from tpu_multigrid_torch.kernels import fas as KF
+    from tpu_multigrid_torch.kernels import fas3d as KF3
+    mod = KF3 if suffix else KF
+    prefix, nl = fas_nl(family)
+    extra = ((1.0 / n) ** 2, 6.0 if suffix else 4.0) if prefix == "fas_" \
+        else ()
+    args = {"smooth_restrict": (u, b, n, shape_c, sweeps, 2.0 / 3.0),
+            "prolong_smooth": (u, b, ec, n, sweeps, 2.0 / 3.0),
+            "prolong_smooth_resnorm": (u, b, ec, n, sweeps, 2.0 / 3.0)}
+    cases = {}
+    for name, a in args.items():
+        entry = prefix + name + suffix
+        kern, plain = getattr(mod, entry), getattr(mod, entry + "_plain")
+        full = a + nl + extra
+        cases[entry] = (lambda k=kern, f=full: k(*f),
+                        lambda p=plain, f=full: p(*f))
+    return cases
+
+
+def check_fas(errs, cases):
+    """Each entry against its plain version: bitwise, the norm to 1e-4.
+    Returns the largest relative norm difference."""
+    rel = 0.0
+    for entry, (kern, plain) in cases.items():
+        got, want = kern(), plain()
+        if entry.startswith(("fas_prolong_smooth_resnorm",
+                             "qfas_prolong_smooth_resnorm")):
+            track(errs, entry, got[0], want[0])
+            rel = max(rel, track_norm(errs, entry, got[1], want[1]))
+        elif isinstance(got, tuple):
+            for g, w in zip(got, want):
+                track(errs, entry, g, w)
+        else:
+            track(errs, entry, got, want)
+    return rel
+
+
+def phase_fas_kernels(errs):
+    """K1f, K2f, K2f-resnorm (2D) and K1f_3, K2f_3, K2f_3-resnorm (3D),
+    pointwise (Bratu) and quasilinear, 1, 2 and 3 sweeps, from a seeded u
+    (scale 0.1) and b, against their plain versions."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(21)
+    for S, Sc, n in FAS_PAIRS:
+        u, b = interior_randn(S, n, gen, 0.1), interior_randn(S, n, gen)
+        ec = interior_randn(Sc, n // 2, gen, 0.05)
+        rel = max(check_fas(errs, fas_cases(fam, "", u, b, ec, n, Sc, sw))
+                  for fam in ("bratu", "quadratic") for sw in (1, 2, 3))
+        print(f"[fas-kernels] S={S:5d} Sc={Sc:5d} n={n:5d}, Bratu and "
+              f"quadratic, 1-3 sweeps: K1f, K2f, K2f-resnorm bitwise equal; "
+              f"resnorm norm rel {rel:.3g}")
+        del u, b, ec
+    for shape, shape_c, n in FAS_PAIRS3:
+        u = interior_randn3(shape, n, gen, 0.1)
+        b = interior_randn3(shape, n, gen)
+        ec = interior_randn3(shape_c, n // 2, gen, 0.05)
+        rel = max(check_fas(errs, fas_cases(fam, "3", u, b, ec, n, shape_c,
+                                            sw))
+                  for fam in ("bratu", "quadratic") for sw in (1, 2, 3))
+        print(f"[fas-kernels] {shape} -> {shape_c} n={n}, Bratu and "
+              f"quadratic, 1-3 sweeps: K1f_3, K2f_3, K2f_3-resnorm bitwise "
+              f"equal; resnorm norm rel {rel:.3g}")
+        del u, b, ec
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def fas_counts(hier, prefix, cycles, fmg=False):
+    """Launches of ``cycles`` FAS cycles (Jacobi (2, 2)) over ``hier``: K1f
+    on each pair the gate takes, K2f on each but the finest, whose K2f
+    fuses the norm; with ``fmg`` first the FMG-FAS pass, one cycle at each
+    level from the second coarsest up (K1f and K2f on every fused pair
+    below it)."""
+    from tpu_multigrid_torch.kernels import fas as KF
+    from tpu_multigrid_torch.kernels import fas3d as KF3
+    lv = hier.levels
+    three = getattr(lv[0], "ndim", 2) == 3
+    suffix = "3" if three else ""
+    fused = [KF3.fas3_supported(f.grid_shape, c.grid_shape, 2, torch.float32)
+             if three else KF.fas_supported(f.S, c.S, 2, torch.float32)
+             for f, c in zip(lv, lv[1:])]
+    k1 = cycles * sum(fused)
+    k2 = cycles * sum(fused[1:])
+    if fmg:
+        extra = sum(sum(fused[k:]) for k in range(len(fused)))
+        k1, k2 = k1 + extra, k2 + extra
+    return expect(**{prefix + "smooth_restrict" + suffix: k1,
+                     prefix + "prolong_smooth" + suffix: k2,
+                     prefix + "prolong_smooth_resnorm" + suffix:
+                         cycles * int(fused[0])})
+
+
+def fas_setup(family, ndim):
+    name = ("build_pointwise_hierarchy" if family == "bratu"
+            else "build_quasilinear_hierarchy") + ("3" if ndim == 3 else "")
+    module = "bratu" if family == "bratu" else "nldiffusion"
+    return HostSetup(f"tpu_multigrid_torch.problems.{module}", name)
+
+
+def fas_problem(family, cfg, ndim):
+    """The door's problem on the card, its levels padded for the kernels
+    when ``cfg`` takes them."""
+    import tpu_multigrid_torch as tmg
+    pad = (dict(align=16, min_pad_level=0, lane_align=128) if ndim == 3
+           else dict(align=256, min_pad_level=0)) if cfg.use_kernels else {}
+    if family == "bratu":
+        cls = tmg.Bratu3DProblem if ndim == 3 else tmg.BratuProblem
+        return cls(cfg, lam=FAS_LAM, device=DEVICE, **pad)
+    cls = (tmg.QuasilinearDiffusion3DProblem if ndim == 3
+           else tmg.QuasilinearDiffusionProblem)
+    return cls(cfg, gamma=FAS_GAMMA, device=DEVICE, **pad)
+
+
+def fas_config(family, level, use_kernels, **kw):
+    """The doors' default schedule: Jacobi (2, 2), coarsest level 3; the
+    quasilinear door smooths its coarsest level with 40 sweeps."""
+    import tpu_multigrid_torch as tmg
+    if family != "bratu":
+        kw = dict(dict(coarse_solver="smooth", coarse_smooth_sweeps=40), **kw)
+    return tmg.MultigridConfig(finest_level=level, use_kernels=use_kernels,
+                               **kw)
+
+
+def fas_routes(tag, family, level, ndim, summary, fmg=False):
+    """One door on the kernel route (its default config) and on the plain
+    route, each with launch counts set to 0 just before it and checked
+    exactly after: iterations within 1, finite solutions."""
+    import tpu_multigrid_torch as tmg
+    door = (tmg.solve_bratu if family == "bratu"
+            else tmg.solve_quasilinear_diffusion)
+    kw = dict(lam=FAS_LAM) if family == "bratu" else dict(gamma=FAS_GAMMA)
+    prefix = "fas_" if family == "bratu" else "qfas_"
+    hier = fas_problem(family, fas_config(family, level, True),
+                       ndim).hierarchy
+    if not fmg:
+        per = fas_counts(hier, prefix, 1)
+        check(sum(per.values()) == 2 * FAS_PER_CYCLE[level],
+              f"{tag}: launches per cycle {nonzero(per)}")
+    runs = {}
+    for use in ((True,) if fmg else (True, False)):
+        path = tag + ("" if use else "-plain")
+        cfg = None if use else fas_config(family, level, False)
+        res, secs, host, peak = front_door3(path, lambda: door(
+            level, ndim=ndim, config=cfg, use_fmg=fmg, device=DEVICE, **kw),
+            fas_setup(family, ndim))
+        got = PATH_COUNTS[path]
+        want = (fas_counts(hier, prefix, res.iterations, fmg) if use
+                else expect())
+        check(got == want, f"{path} launches {got}, expected {want}")
+        check(bool(torch.isfinite(res.u).all())
+              and (res.converged or res.stalled),
+              f"{path}: {var_state(res)}")
+        route = "kernels" if use else "plain"
+        label = (f"{door.__name__}({level}{', ndim=3' if ndim == 3 else ''}"
+                 f"{', use_fmg=True' if fmg else ''}), {route}")
+        summary[path] = run_line(label, res, secs, host, peak, tag="fas")
+        if use:
+            print(f"[fas] launches {nonzero(got)}")
+            check(tuple(res.u.shape) == tuple(hier.levels[0].grid_shape
+                                              if ndim == 3 else
+                                              (hier.levels[0].S,) * 2),
+                  f"{path}: shape {tuple(res.u.shape)}")
+        runs[use] = res
+    if not fmg:
+        rk, rp = runs[True], runs[False]
+        n = 2 ** level
+        uk = tmg.extract_solution(rk.u, n)
+        up = tmg.extract_solution(rp.u, n)
+        du = float((uk - up).abs().max()) / float(up.abs().max())
+        print(f"[fas] {tag}: iterations kernels / plain {rk.iterations} / "
+              f"{rp.iterations}; max |u_kernels - u_plain| / max|u_plain| = "
+              f"{du:.3e}")
+        check(abs(rk.iterations - rp.iterations) <= 1,
+              f"{tag}: iterations {rk.iterations} / {rp.iterations}")
+        summary[tag + "-du"] = du
+    del runs, hier
+    torch.cuda.empty_cache()
+
+
+def bratu_newton_scipy(n, lam):
+    """The discrete Bratu system A u - h^2 lam e^u = 0 (5-point A, diag 4),
+    solved by Newton's method with scipy's sparse direct solves, float64,
+    from zero to |F| < 1e-14: the interior values, row-major."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    m = n - 1
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(m, m))
+    eye = sp.identity(m)
+    a = (sp.kron(t, eye) + sp.kron(eye, t)).tocsc()
+    h2 = (1.0 / n) ** 2
+    u = np.zeros(m * m)
+    for _ in range(20):
+        f = a @ u - h2 * lam * np.exp(u)
+        if np.abs(f).max() < 1e-14:
+            break
+        u = u - spl.spsolve((a - sp.diags(h2 * lam * np.exp(u))).tocsc(), f)
+    return u
+
+
+def phase_fas_slice():
+    """The FAS slice, each path with launch counts set to 0 just before it
+    and checked exactly after."""
+    import tpu_multigrid_torch as tmg
+    summary = {}
+    # 1-4. The doors on both routes: 4097^2 Bratu and quasilinear, 513^3
+    # Bratu, 257^3 quasilinear.
+    fas_routes("fas-bratu-12", "bratu", FAS_LEVEL, 2, summary)
+    fas_routes("fas-quasi-12", "quadratic", FAS_LEVEL, 2, summary)
+    fas_routes("fas-bratu3-9", "bratu", FAS3_LEVEL, 3, summary)
+    fas_routes("fas-quasi3-8", "quadratic", QUASI3_LEVEL, 3, summary)
+    # 5. FMG-FAS first, on the kernels.
+    fas_routes("fas-bratu-12-fmg", "bratu", FAS_LEVEL, 2, summary, fmg=True)
+
+    # 6. A caller's own nonlinearity (phi = u^3) runs the plain route and
+    # launches no FAS kernel; with use_kernels=True the door refuses it.
+    def cubic(u):
+        return u * u * u
+
+    def dcubic(u):
+        return 3.0 * u * u
+    rc = drive("fas-cubic-9", lambda: tmg.solve_nonlinear_poisson(
+        9, phi=cubic, dphi=dcubic, device=DEVICE))
+    check(PATH_COUNTS["fas-cubic-9"] == expect()
+          and bool(torch.isfinite(rc.u).all())
+          and (rc.converged or rc.stalled),
+          f"solve_nonlinear_poisson(9, u^3): {var_state(rc)}, launches "
+          f"{nonzero(PATH_COUNTS['fas-cubic-9'])}")
+    refused = False
+    try:
+        tmg.solve_nonlinear_poisson(
+            9, phi=cubic, dphi=dcubic, device=DEVICE,
+            config=tmg.MultigridConfig(finest_level=9, use_kernels=True))
+    except ValueError as e:
+        refused = "carry only" in str(e)
+    check(refused, "use_kernels=True with u^3 was not refused")
+    print(f"[fas] solve_nonlinear_poisson(9, phi=u^3): {var_state(rc)} after "
+          f"{rc.iterations} iterations, no kernel launched; with "
+          f"use_kernels=True: ValueError")
+    summary["cubic_9_iterations"] = rc.iterations
+
+    # 7. Level 6 in float64 (no kernel takes f64) against scipy's Newton
+    # solve of the same discrete Bratu system.
+    c6 = tmg.MultigridConfig(finest_level=6, dtype=torch.float64)
+    r6 = drive("fas-bratu-6-f64", lambda: tmg.solve_bratu(
+        6, lam=FAS_LAM, config=c6, tol=1e-12, device=DEVICE))
+    check(PATH_COUNTS["fas-bratu-6-f64"] == expect(),
+          "the float64 level-6 Bratu solve launched kernels")
+    ref = bratu_newton_scipy(64, FAS_LAM)
+    got = r6.u[1:64, 1:64].cpu().reshape(-1).numpy()
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"[fas] level 6, float64: {var_state(r6)} after {r6.iterations} "
+          f"iterations; vs scipy's sparse Newton solve: rel err {err:.3e}")
+    check(r6.converged and err <= 1e-10, f"level-6 Bratu rel err {err}")
+    summary["level6_f64_iterations"] = r6.iterations
+    summary["level6_f64_rel_err"] = err
+    return summary
+
+
 # Float32 operations per node, counted from the 3D kernels' sources: a
 # Jacobi step of the 7-point stencil (6 adds, 2 multiplies, 1 add), an RB-GS
 # half-step on the half of the nodes it updates (7 each), the residual (8);
@@ -2376,6 +2696,7 @@ def phase_times(card, prob_var, prob_var3, prob_aniso):
     times3d(card, times, work)
     var3_times(card, prob_var3, times, work)
     aniso_times(card, prob_aniso, times, work)
+    fas_times(card, times, work)
     return times, work, library
 
 
@@ -2513,6 +2834,108 @@ def aniso_times(card, prob, times, work):
     torch.cuda.empty_cache()
 
 
+# Float32 operations per node, counted from fas.cu / fas3d.cu (an expf
+# counted as one): a Jacobi-Newton step (the 5- or 7-point neighbour sum,
+# phi, ap, the denominator, the update: 14 / 16), a Picard-Jacobi step (9
+# per edge, 5 more: 41 / 59), the nonlinear residual (Bratu 10 / 12,
+# quadratic 37 / 55), the coarse apply plus the restricted residual per
+# coarse node (10 / 12, 37 / 55).
+FSTEP = {("fas_", ""): 14, ("fas_", "3"): 16, ("qfas_", ""): 41,
+         ("qfas_", "3"): 59}
+FRES = {("fas_", ""): 10, ("fas_", "3"): 12, ("qfas_", ""): 37,
+        ("qfas_", "3"): 55}
+FCAP = FRES
+
+
+def fas_work(prefix, suffix, shape, shape_c, n, sweeps):
+    """(bytes, operations) of a family's FAS kernels, by the rule of the
+    other rows: u over its (n+1)^d reach (the interior for K2f, which masks
+    u + P e_c first), b over the interior, e_c over the coarse reach, every
+    output in full (u', and uc0 and bc for K1f); the operations count the
+    interior nodes."""
+    d = 3 if suffix else 2
+    cells = int(np.prod(shape)) if d == 3 else shape * shape
+    ccells = int(np.prod(shape_c)) if d == 3 else shape_c * shape_c
+    reach, inner = (n + 1) ** d, (n - 1) ** d
+    creach, cinner = (n // 2 + 1) ** d, (n // 2 - 1) ** d
+    key = (prefix, suffix)
+    fw, pro = (FW3, PRO3) if d == 3 else (FW, PRO)
+    sweep = sweeps * FSTEP[key] * inner
+    k2 = 4 * (2 * inner + creach + cells)
+    return {
+        prefix + "smooth_restrict" + suffix: (
+            4 * (reach + inner + cells + 2 * ccells),
+            sweep + FRES[key] * inner + (fw + FCAP[key]) * cinner),
+        prefix + "prolong_smooth" + suffix: (k2, sweep + pro * inner),
+        prefix + "prolong_smooth_resnorm" + suffix: (
+            k2 + 4, sweep + (pro + FRES[key] + 2) * inner)}
+
+
+def fas_times(card, times, work):
+    """The FAS V-cycle on both routes at 4097^2 (Bratu and quasilinear,
+    benchmarks/bench_fas.py's Jacobi (2, 2), coarsest level 5) and at 513^3
+    (Bratu, coarsest level 3), and each FAS kernel beside its plain version
+    at 4352 / 2304 and (528, 528, 640) / (272, 272, 384), 2 sweeps.  No
+    PyTorch call computes any of these functions: no library time."""
+    import tpu_multigrid_torch as tmg
+    cycles = [("bratu", FAS_LEVEL, 2, 5), ("quadratic", FAS_LEVEL, 2, 5),
+              ("bratu", FAS3_LEVEL, 3, 3)]
+    for family, level, ndim, coarsest in cycles:
+        for use in (True, False):
+            cfg = tmg.MultigridConfig(finest_level=level,
+                                      coarsest_level=coarsest,
+                                      use_kernels=use)
+            prob = fas_problem(family, cfg, ndim)
+            b = prob.rhs()
+            u = torch.zeros_like(b)
+            ms = cuda_ms(lambda: tmg.fas_cycle(prob.hierarchy, cfg, u, b))
+            key = (f"fas_vcycle_{family}{'3d' if ndim == 3 else ''}"
+                   f"{'' if use else '_plain'}")
+            times[key] = ms
+            side = f"{2 ** level + 1}^{ndim}"
+            dof = (2 ** level - 1) ** ndim
+            print(f"[times] FAS V-cycle ({family}) at {side}, Jacobi (2,2), "
+                  f"coarsest {coarsest}, {'kernels' if use else 'plain  '}: "
+                  f"{ms:.3f} ms, {dof / (ms * 1e-3):.4g} DOF/s  ({card})")
+            if use:
+                # The coarsest level's share: the dense Newton solve (three
+                # torch.linalg.solve) or the Picard sweeps, the same on both
+                # routes.
+                from tpu_multigrid_torch.cycles import fas as FC
+                hier = prob.hierarchy
+                uc = torch.zeros_like(prob.rhs(hier.num_levels - 1))
+                cms = cuda_ms(lambda: FC._coarsest(hier, cfg, uc, uc))
+                times[key + "_coarsest"] = cms
+                print(f"[times]   its coarsest level ({hier.levels[-1].n + 1}"
+                      f"^{ndim}) alone: {cms:.3f} ms  ({card})")
+            del prob, b, u
+            torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(22)
+    for (S, Sc, n), (shape, shape_c, n3) in zip(FAS_PAIRS[:1],
+                                                FAS_PAIRS3[:1]):
+        grids = [("", interior_randn(S, n, gen, 0.1), interior_randn(S, n, gen),
+                  interior_randn(Sc, n // 2, gen, 0.05), n, Sc, S),
+                 ("3", interior_randn3(shape, n3, gen, 0.1),
+                  interior_randn3(shape, n3, gen),
+                  interior_randn3(shape_c, n3 // 2, gen, 0.05), n3, shape_c,
+                  shape)]
+        for suffix, u, b, ec, nn, sc, sf in grids:
+            for family in ("bratu", "quadratic"):
+                prefix = fas_nl(family)[0]
+                work.update(fas_work(prefix, suffix, sf, sc, nn, 2))
+                for name, (kern, plain) in fas_cases(
+                        family, suffix, u, b, ec, nn, sc, 2).items():
+                    times[name] = (cuda_ms(kern), cuda_ms(plain))
+                    k, p = times[name]
+                    bms, by = bound(*work[name])
+                    print(f"[times] {name:29s} {sf}: kernel {k:.3f} ms, "
+                          f"plain {p:.3f} ms, bound {bms:.3f} ms ({by})  "
+                          f"({card})")
+        del grids
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2537,6 +2960,8 @@ def main():
     prob_aniso, host_a, setup_a = aniso_setup()
     phase_aniso_kernels(errs, prob_aniso)
     record_aniso = phase_aniso_slice(prob_aniso, host_a, setup_a)
+    phase_fas_kernels(errs)
+    record_fas = phase_fas_slice()
     times, work, library = phase_times(card, prob_var, prob_var3, prob_aniso)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
@@ -2546,6 +2971,7 @@ def main():
     print(f"[refined3d] summary: {json.dumps(record3d)}")
     print(f"[var3d] summary: {json.dumps(record_var3d)}")
     print(f"[aniso] summary: {json.dumps(record_aniso)}")
+    print(f"[fas] summary: {json.dumps(record_fas)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

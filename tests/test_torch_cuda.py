@@ -712,3 +712,170 @@ def test_zebra_kernel_path_solve_matches_plain_path(gen):
     torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
                                rtol=1e-3, atol=0)
     assert rk.res_history[4] < 0.1 * rk.res_history[0]
+
+
+# ---------------------------------------------------------------------------
+# The FAS kernels: K1f, K2f (2D) and K1f_3, K2f_3 (3D)
+# ---------------------------------------------------------------------------
+
+def _fas_args(family):
+    """The nonlinearity arguments of the fas_* (Bratu, lam = 4) or qfas_*
+    (a = 1 + 2 u^2) entries, and the entry prefix."""
+    from tpu_multigrid_torch.core.nonlinear import (BratuNonlinearity,
+                                                    QuadraticCoefficient)
+    if family == "bratu":
+        phi = BratuNonlinearity(4.0)
+        return "fas_", (phi, phi)
+    return "qfas_", (QuadraticCoefficient(2.0),)
+
+
+def _fas_call(mod, prefix, name, args, nl, h2, diag):
+    """Call entry ``prefix + name`` of ``mod``; the pointwise entries also
+    take (h2, diag)."""
+    extra = (h2, diag) if prefix == "fas_" else ()
+    return getattr(mod, prefix + name)(*args, *nl, *extra)
+
+
+# (S, Sc, n): the bottom pair, a multi-tile pair, a padded odd-sized pair.
+FAS_PAIRS = [(256, 256, 64), (768, 512, 512), (1280, 768, 1000)]
+
+
+@pytest.mark.parametrize("S,Sc,n", FAS_PAIRS)
+@pytest.mark.parametrize("family", ["bratu", "quadratic"])
+@pytest.mark.parametrize("sweeps", [1, 2, 3])
+def test_fas_kernels_match_plain_bitwise(gen, S, Sc, n, family, sweeps):
+    """K1f, K2f and K2f-resnorm against their plain versions on the same
+    CUDA tensors, u at scale 0.1: bitwise (the norm to rtol 1e-4)."""
+    from tpu_multigrid_torch.kernels import fas as KF
+    prefix, nl = _fas_args(family)
+    u, b = _interior(S, n, gen, 0.1), _interior(S, n, gen)
+    ec = _interior(Sc, n // 2, gen, 0.05)
+    h2 = (1.0 / n) ** 2
+    a1 = (u, b, n, Sc, sweeps, 2.0 / 3.0)
+    got = _fas_call(KF, prefix, "smooth_restrict", a1, nl, h2, 4.0)
+    want = _fas_call(KF, prefix, "smooth_restrict_plain", a1, nl, h2, 4.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    a2 = (u, b, ec, n, sweeps, 2.0 / 3.0)
+    want = _fas_call(KF, prefix, "prolong_smooth_plain", a2, nl, h2, 4.0)
+    assert torch.equal(_fas_call(KF, prefix, "prolong_smooth", a2, nl, h2,
+                                 4.0), want)
+    kv, knorm = _fas_call(KF, prefix, "prolong_smooth_resnorm", a2, nl, h2,
+                          4.0)
+    pv, pnorm = _fas_call(KF, prefix, "prolong_smooth_resnorm_plain", a2, nl,
+                          h2, 4.0)
+    assert torch.equal(kv, want) and torch.equal(pv, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-4, atol=0)
+
+
+FAS_PAIRS3 = [((48, 48, 128), (32, 32, 128), 32),
+              ((144, 144, 256), (80, 80, 128), 128)]
+
+
+@pytest.mark.parametrize("shape,shape_c,n", FAS_PAIRS3)
+@pytest.mark.parametrize("family", ["bratu", "quadratic"])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 10])
+def test_fas3_kernels_match_plain_bitwise(gen, shape, shape_c, n, family,
+                                          sweeps):
+    """K1f_3, K2f_3 and K2f_3-resnorm against their plain versions: bitwise
+    (the norm to rtol 1e-4); 10 sweeps split into launches."""
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import fas3d as KF3
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    prefix, nl = _fas_args(family)
+    u, b = _interior3(shape, n, gen, 0.1), _interior3(shape, n, gen)
+    ec = _interior3(shape_c, n // 2, gen, 0.05)
+    h2 = (1.0 / n) ** 2
+    kernels.reset_launch_counts()
+    a1 = (u, b, n, shape_c, sweeps, 2.0 / 3.0)
+    got = _fas_call(KF3, prefix, "smooth_restrict3", a1, nl, h2, 6.0)
+    want = _fas_call(KF3, prefix, "smooth_restrict3_plain", a1, nl, h2, 6.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    a2 = (u, b, ec, n, sweeps, 2.0 / 3.0)
+    want = _fas_call(KF3, prefix, "prolong_smooth3_plain", a2, nl, h2, 6.0)
+    assert torch.equal(_fas_call(KF3, prefix, "prolong_smooth3", a2, nl, h2,
+                                 6.0), want)
+    kv, knorm = _fas_call(KF3, prefix, "prolong_smooth_resnorm3", a2, nl, h2,
+                          6.0)
+    _, pnorm = _fas_call(KF3, prefix, "prolong_smooth_resnorm3_plain", a2,
+                         nl, h2, 6.0)
+    assert torch.equal(kv, want)
+    torch.testing.assert_close(knorm, pnorm, rtol=1e-4, atol=0)
+    halo = _build.lib().window3_max_halo
+    counts = kernels.launch_counts()
+    plans = {"smooth_restrict3": 2, "prolong_smooth3": 0,
+             "prolong_smooth_resnorm3": 1}
+    for name, extra in plans.items():
+        assert counts[prefix + name] == len(
+            T3.split_plan(sweeps, extra, halo, (1.0,)))
+    assert (counts[prefix + "smooth_restrict3"] > 1) == (sweeps == 10)
+
+
+def test_fas_launches_are_counted_and_bad_inputs_raise(gen):
+    """One launch per 2D call; a caller's own nonlinearity, CPU operands,
+    float64 and a coarse grid short of S/2 raise, launching nothing."""
+    from tpu_multigrid_torch.kernels import fas as KF
+    from tpu_multigrid_torch.kernels import fas3d as KF3
+    S, Sc, n = FAS_PAIRS[0]
+    _, (phi, _) = _fas_args("bratu")
+    _, (a,) = _fas_args("quadratic")
+    u, b = _interior(S, n, gen, 0.1), _interior(S, n, gen)
+    h = (1.0 / n) ** 2
+    kernels.reset_launch_counts()
+    KF.fas_smooth_restrict(u, b, n, Sc, 2, 2 / 3, phi, phi, h)
+    KF.fas_prolong_smooth(u, b, u, n, 2, 2 / 3, phi, phi, h)
+    KF.fas_prolong_smooth_resnorm(u, b, u, n, 2, 2 / 3, phi, phi, h)
+    KF.qfas_smooth_restrict(u, b, n, Sc, 2, 2 / 3, a)
+    KF.qfas_prolong_smooth(u, b, u, n, 2, 2 / 3, a)
+    KF.qfas_prolong_smooth_resnorm(u, b, u, n, 2, 2 / 3, a)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == dict.fromkeys(
+        KF.LAUNCHES, 1)
+    own = lambda x: -4.0 * torch.exp(x)  # noqa: E731
+    with pytest.raises(ValueError, match="carries only"):
+        KF.fas_smooth_restrict(u, b, n, Sc, 2, 2 / 3, own, own, h)
+    with pytest.raises(ValueError, match="carries only"):
+        KF.fas_prolong_smooth(u, b, u, n, 2, 2 / 3, phi, own, h)
+    with pytest.raises(ValueError, match="carries only"):
+        KF.qfas_smooth_restrict(u, b, n, Sc, 2, 2 / 3, lambda x: 1 + x * x)
+    with pytest.raises(ValueError, match="carries only"):
+        u3 = torch.zeros((48, 48, 128), device="cuda")
+        KF3.fas_smooth_restrict3(u3, u3, 32, (32, 32, 128), 2, 2 / 3, own,
+                                 own, h)
+    with pytest.raises(ValueError):
+        KF.fas_smooth_restrict(u, b.cpu(), n, Sc, 2, 2 / 3, phi, phi, h)
+    with pytest.raises(ValueError):
+        KF.fas_smooth_restrict(u, b, n, 64, 2, 2 / 3, phi, phi, h)
+    with pytest.raises(NotImplementedError):
+        KF.fas_smooth_restrict(u.double(), b.double(), n, Sc, 2, 2 / 3, phi,
+                               phi, h)
+    assert kernels.launch_counts() == counts
+
+
+def test_fas_kernel_path_solve_matches_plain_path(gen):
+    """solve_bratu(9) and solve_quasilinear_diffusion(9) on the kernels and
+    on the plain operators: exact launch counts (every pair of the padded
+    levels 9 -> 3 fuses), the same iteration counts within 1, histories to
+    rtol 1e-3 over the first cycles."""
+    for door, kw in ((tmg.solve_bratu, dict(lam=4.0)),
+                     (tmg.solve_quasilinear_diffusion, dict(gamma=2.0))):
+        prefix = "fas_" if door is tmg.solve_bratu else "qfas_"
+        kernels.reset_launch_counts()
+        rk = door(9, tol=1e-5, device="cuda", **kw)
+        counts = kernels.launch_counts()
+        it = rk.iterations
+        want = dict.fromkeys(counts, 0)
+        want.update({prefix + "smooth_restrict": 6 * it,
+                     prefix + "prolong_smooth": 5 * it,
+                     prefix + "prolong_smooth_resnorm": it})
+        assert counts == want
+        cfg = tmg.MultigridConfig(finest_level=9, use_kernels=False)
+        if door is tmg.solve_quasilinear_diffusion:
+            cfg = dataclasses.replace(cfg, coarse_solver="smooth",
+                                      coarse_smooth_sweeps=40)
+        rp = door(9, tol=1e-5, config=cfg, device="cuda", **kw)
+        assert kernels.launch_counts() == counts
+        assert abs(rp.iterations - it) <= 1
+        torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
+                                   rtol=1e-3, atol=0)

@@ -18,25 +18,35 @@ and K2_3 as CUDA kernels; and the 3D variable-coefficient path
 wind ``solve_convection_diffusion3d``) with K1v_3 and K2v_3 as CUDA kernels;
 and the 2D anisotropic path (``solve_anisotropic``: a rotated constant
 tensor, Galerkin coarse operators, zebra line relaxation on full
-coarsening) with the zebra smoother, K1z and K2z as CUDA kernels
-(:mod:`tpu_multigrid_torch.kernels`).  The front doors run on the card
-unless the caller passes ``device``.
+coarsening) with the zebra smoother, K1z and K2z as CUDA kernels; and the
+nonlinear FAS tier in 2D and 3D (``solve_bratu``,
+``solve_nonlinear_poisson``, ``solve_quasilinear_diffusion``) with K1f, K2f,
+K1f_3 and K2f_3 as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`).  The
+front doors run on the card unless the caller passes ``device``.
 """
 
-from .api import (extract_solution, solve_anisotropic,
+from .api import (extract_solution, solve_anisotropic, solve_bratu,
                   solve_convection_diffusion3d, solve_diffusion,
-                  solve_diffusion3d, solve_helmholtz, solve_poisson,
-                  solve_poisson3d)
+                  solve_diffusion3d, solve_helmholtz, solve_nonlinear_poisson,
+                  solve_poisson, solve_poisson3d, solve_quasilinear_diffusion)
 from .config import REFERENCE_CONFIG, MultigridConfig, default_device
 from .core import ops
 from .core.grids import (Hierarchy, build_galerkin_hierarchy,
                          build_poisson_hierarchy)
+from .core.nonlinear import (BratuNonlinearity, PointwiseNonlinearOp,
+                             QuadraticCoefficient, QuasilinearFluxOp,
+                             QuasilinearFluxOp3)
 from .core.operators import VarStencilOp, VarStencilOp3D
 from .cycles import SolveResult, cycle, fmg, solve_fixed, solve_until_tol
-from .problems import (AnisotropicPoissonProblem,
-                       ConvectionDiffusion3DProblem, Diffusion3DProblem,
-                       DiffusionProblem, HelmholtzProblem, Poisson3DProblem,
-                       Poisson4_3DProblem, PoissonProblem)
+from .cycles.fas import (fas_cycle, fas_solve_fixed, fas_solve_until_tol,
+                         fmg_fas)
+from .problems import (AnisotropicPoissonProblem, Bratu3DProblem,
+                       BratuProblem, ConvectionDiffusion3DProblem,
+                       Diffusion3DProblem, DiffusionProblem, HelmholtzProblem,
+                       NonlinearPoisson3DProblem, NonlinearPoissonProblem,
+                       Poisson3DProblem, Poisson4_3DProblem, PoissonProblem,
+                       QuasilinearDiffusion3DProblem,
+                       QuasilinearDiffusionProblem)
 
 __all__ = [
     "MultigridConfig", "REFERENCE_CONFIG", "default_device", "solve_poisson",
@@ -48,4 +58,11 @@ __all__ = [
     "ConvectionDiffusion3DProblem", "Hierarchy", "build_poisson_hierarchy",
     "build_galerkin_hierarchy", "VarStencilOp", "VarStencilOp3D",
     "cycle", "fmg", "solve_fixed", "solve_until_tol", "SolveResult", "ops",
+    "solve_nonlinear_poisson", "solve_bratu", "solve_quasilinear_diffusion",
+    "BratuProblem", "Bratu3DProblem", "NonlinearPoissonProblem",
+    "NonlinearPoisson3DProblem", "QuasilinearDiffusionProblem",
+    "QuasilinearDiffusion3DProblem", "BratuNonlinearity",
+    "QuadraticCoefficient", "PointwiseNonlinearOp", "QuasilinearFluxOp",
+    "QuasilinearFluxOp3", "fas_cycle", "fas_solve_fixed",
+    "fas_solve_until_tol", "fmg_fas",
 ]

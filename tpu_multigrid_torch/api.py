@@ -2,7 +2,9 @@
 3D: ``solve_poisson``, ``solve_poisson3d``), variable-coefficient diffusion
 (``solve_diffusion``, ``solve_diffusion3d``), shifted Poisson
 (``solve_helmholtz``), anisotropic Poisson (``solve_anisotropic``) and 3D
-convection-diffusion (``solve_convection_diffusion3d``) problems.
+convection-diffusion (``solve_convection_diffusion3d``) problems, and the
+nonlinear FAS solves (``solve_nonlinear_poisson``, ``solve_bratu``,
+``solve_quasilinear_diffusion``, 2D and 3D).
 
 Every entry runs on ``device``; ``device=None`` means the card
 (``config.default_device``), and raises where there is none.
@@ -12,17 +14,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, Optional, Union
 
 import torch
 
 from .config import MultigridConfig, default_device
+from .core.nonlinear import CARRIED, kernel_selector
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
+from .cycles.fas import fas_solve_fixed, fas_solve_until_tol, fmg_fas
 from .problems.anisotropic import AnisotropicPoissonProblem
+from .problems.bratu import (Bratu3DProblem, BratuProblem,
+                             NonlinearPoisson3DProblem, NonlinearPoissonProblem)
 from .problems.convection3d import ConvectionDiffusion3DProblem
 from .problems.diffusion import DiffusionProblem
 from .problems.diffusion3d import Diffusion3DProblem
 from .problems.helmholtz import HelmholtzProblem
+from .problems.nldiffusion import (QuasilinearDiffusion3DProblem,
+                                   QuasilinearDiffusionProblem)
 from .problems.poisson import PoissonProblem, boundary_grid
 from .problems.poisson3d import Poisson3DProblem, boundary_grid3
 from .problems.poisson4_3d import Poisson4_3DProblem
@@ -433,6 +442,186 @@ def _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
     if lift is not None:
         res = dataclasses.replace(res, u=res.u + lift)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Nonlinear solves (FAS multigrid; cycles/fas.py)
+# ---------------------------------------------------------------------------
+
+def _run_fas(problem, config: MultigridConfig, tol, max_cycles, num_cycles,
+             use_fmg) -> SolveResult:
+    """FAS analogue of :func:`_run`: nonlinear residual norms; FMG-FAS
+    prolongs the solution and takes the per-level assembled right-hand
+    sides."""
+    if tol is None and num_cycles is None:
+        raise ValueError("need either tol or num_cycles (both are None)")
+    if config.smoother != "jacobi":
+        # FAS smooths with Jacobi-Newton / Picard-Jacobi (op.nsmooth); a
+        # smoother chosen for the linear tier would not apply.
+        warnings.warn(
+            f"FAS solvers smooth with weighted Jacobi-Newton/Picard only; "
+            f"config.smoother={config.smoother!r} is ignored",
+            stacklevel=3)
+    hier = problem.hierarchy
+    bs = problem.rhs_all_levels() if use_fmg else [problem.rhs()]
+    u0 = fmg_fas(hier, config, bs) if use_fmg else None
+    if num_cycles is not None:
+        return fas_solve_fixed(hier, config, bs[0], num_cycles, u0=u0)
+    return fas_solve_until_tol(hier, config, bs[0], tol=tol,
+                               max_cycles=max_cycles, u0=u0)
+
+
+def _fas_config(config: Optional[MultigridConfig], finest_level: int,
+                device: torch.device, carried: bool, mesh, dist_path: str,
+                ndim: int, **defaults) -> MultigridConfig:
+    """A FAS door's config: the given one at ``finest_level``, or the
+    default schedule (with ``defaults``) with the kernels on when the solve
+    runs on the card and the nonlinearity is one the kernels carry.  Raises
+    for what is not ported and for ``use_kernels=True`` with a caller's own
+    nonlinearity."""
+    if ndim not in (2, 3):
+        raise ValueError(f"ndim must be 2 or 3, got {ndim}")
+    if dist_path != "jnp":
+        raise NotImplementedError(f"dist_path={dist_path!r} (the distributed "
+                                  "FAS paths) is not ported yet")
+    if config is None:
+        config = MultigridConfig(finest_level=finest_level,
+                                 use_kernels=device.type == "cuda" and carried,
+                                 **defaults)
+    config = _level_config(config, finest_level)
+    _check_single_device(config, mesh)
+    if config.use_kernels and not carried:
+        raise ValueError(f"use_kernels=True: the FAS kernels carry only "
+                         f"{CARRIED}; a caller's own nonlinearity runs on the "
+                         f"plain path (use_kernels=False)")
+    return config
+
+
+def _fas_pad(config: MultigridConfig, ndim: int) -> dict:
+    return _pad_kw3(config) if ndim == 3 else _pad_kw(config)
+
+
+def solve_nonlinear_poisson(
+    finest_level: int = 8,
+    *,
+    phi: Callable,
+    dphi: Callable,
+    ndim: int = 2,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable, None] = None,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    dist_path: str = "jnp",
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -lap(u) + phi(u) = forcing by FAS multigrid (2D, or 3D with
+    ``ndim=3``), on ``device`` (the card when None).
+
+    ``phi``/``dphi`` are pointwise callables on tensors (the nonlinearity
+    and its derivative).  The CUDA kernels carry only the Bratu
+    nonlinearity (``core.nonlinear.BratuNonlinearity`` passed as both
+    ``phi`` and ``dphi``; see ``core.nonlinear.kernel_selector``); any
+    other callable runs the plain torch path, which ``config=None`` picks
+    for it, and a config that asks for ``use_kernels=True`` raises
+    ``ValueError``.  ``use_fmg=True`` runs one FMG-FAS pass first.  Default
+    forcing: 4 (2D) / 6 (3D).
+
+    Not ported yet (each raises ``NotImplementedError``): ``mesh`` and
+    ``dist_path`` other than ``"jnp"`` (the distributed FAS paths).
+    """
+    device = default_device(device)
+    carried = kernel_selector(phi, dphi) is not None
+    config = _fas_config(config, finest_level, device, carried, mesh,
+                         dist_path, ndim)
+    if forcing is None:
+        forcing = 4.0 if ndim == 2 else 6.0
+    cls = NonlinearPoisson3DProblem if ndim == 3 else NonlinearPoissonProblem
+    problem = cls(config, phi=phi, dphi=dphi, forcing=forcing, device=device,
+                  **_fas_pad(config, ndim))
+    return _run_fas(problem, config, tol, max_cycles, num_cycles, use_fmg)
+
+
+def solve_bratu(
+    finest_level: int = 8,
+    *,
+    lam: float = 1.0,
+    ndim: int = 2,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable] = 0.0,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    dist_path: str = "jnp",
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve the Bratu problem -lap(u) - lam * exp(u) = forcing by FAS
+    multigrid, on ``device`` (the card when None).
+
+    Converges to the lower solution branch for lam below the critical value
+    (~6.81 on the unit square, ~9.9 on the unit cube with ``ndim=3``).  The
+    default config is Jacobi-Newton (2, 2), coarsest level 3 with a dense
+    Newton solve, with the K1f/K2f kernels on when the solve runs on the card
+    (the JAX package's default leaves its Pallas kernels off).  ``mesh`` and
+    ``dist_path`` other than ``"jnp"`` raise ``NotImplementedError`` (not
+    ported yet).
+    """
+    device = default_device(device)
+    config = _fas_config(config, finest_level, device, True, mesh, dist_path,
+                         ndim)
+    cls = Bratu3DProblem if ndim == 3 else BratuProblem
+    problem = cls(config, lam=lam, forcing=forcing, device=device,
+                  **_fas_pad(config, ndim))
+    return _run_fas(problem, config, tol, max_cycles, num_cycles, use_fmg)
+
+
+def solve_quasilinear_diffusion(
+    finest_level: int = 8,
+    *,
+    gamma: float = 1.0,
+    a: Optional[Callable] = None,
+    da: Optional[Callable] = None,
+    ndim: int = 2,
+    config: Optional[MultigridConfig] = None,
+    forcing: Union[float, Callable, None] = None,
+    tol: Optional[float] = 1e-8,
+    max_cycles: int = 100,
+    num_cycles: Optional[int] = None,
+    use_fmg: bool = False,
+    mesh=None,
+    dist_path: str = "jnp",
+    device: Union[str, torch.device, None] = None,
+) -> SolveResult:
+    """Solve -div(a(u) grad u) = forcing by FAS multigrid (2D or 3D), on
+    ``device`` (the card when None).
+
+    Default a(u) = 1 + gamma * u^2 (``core.nonlinear.QuadraticCoefficient``,
+    which the CUDA kernels carry); a caller's own positive ``a`` runs the
+    plain path (``da`` is accepted for API symmetry), and raises
+    ``ValueError`` with a config that asks for ``use_kernels=True``.
+    Matrix-free flux operator with Picard-Jacobi smoothing.  The default
+    config smooths the coarsest level with 40 Picard sweeps
+    (``coarse_solver="smooth"``), with the kernels on when the solve runs on
+    the card and the coefficient is carried.  Default forcing: 4 (2D) / 6
+    (3D).  ``mesh`` and ``dist_path`` other than ``"jnp"`` raise
+    ``NotImplementedError`` (not ported yet).
+    """
+    device = default_device(device)
+    carried = a is None or kernel_selector(a) is not None
+    config = _fas_config(config, finest_level, device, carried, mesh,
+                         dist_path, ndim, coarse_solver="smooth",
+                         coarse_smooth_sweeps=40)
+    if forcing is None:
+        forcing = 4.0 if ndim == 2 else 6.0
+    cls = (QuasilinearDiffusion3DProblem if ndim == 3
+           else QuasilinearDiffusionProblem)
+    problem = cls(config, gamma=gamma, a=a, da=da, forcing=forcing,
+                  device=device, **_fas_pad(config, ndim))
+    return _run_fas(problem, config, tol, max_cycles, num_cycles, use_fmg)
 
 
 def extract_solution(result_u: torch.Tensor, n: int) -> torch.Tensor:

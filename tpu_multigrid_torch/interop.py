@@ -12,6 +12,9 @@ import torch
 
 from .config import MultigridConfig
 from .core.grids import Hierarchy
+from .core.nonlinear import (BratuNonlinearity, PointwiseNonlinearOp,
+                             QuadraticCoefficient, QuasilinearFluxOp,
+                             QuasilinearFluxOp3)
 from .core.operators import (Const19Op, ConstStencilOp3D, VarStencilOp,
                              VarStencilOp3D, poisson_op)
 from .cycles import SolveResult
@@ -122,6 +125,53 @@ def var3_hierarchy_from_numpy(levels, coarse_inv=None,
                 coef_stack=put("coef_stack", lv)))
     inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
     return Hierarchy(ops_, inv)
+
+
+def fas_hierarchy_from_numpy(sizes, kind: str, scalar: float,
+                             a_dense=None, device=None) -> Hierarchy:
+    """A FAS hierarchy from the JAX one's level sizes, finest first: ``(n,
+    S)`` per level in 2D, ``(n, S, Sx)`` in 3D.  ``kind`` names the
+    nonlinearity and ``scalar`` its parameter: ``"bratu"`` with λ
+    (``PointwiseNonlinearOp`` over the 5- or 7-point stencil, φ = −λ eᵘ),
+    or ``"quadratic"`` with γ (the flux operator, a = 1 + γu²), the two the
+    JAX problems build from ``lam`` and ``gamma``.  ``a_dense`` is the
+    coarsest level's dense interior matrix (numpy, Bratu only, or None when
+    the coarsest level is smoothed), as a tensor on ``device``."""
+    sizes = [tuple(int(x) for x in s) for s in sizes]
+    ndim = 3 if len(sizes[0]) == 3 else 2
+    if kind == "quadratic":
+        a = QuadraticCoefficient(scalar)
+        if ndim == 3:
+            levels = [QuasilinearFluxOp3(n, S, a, a.da, Sx)
+                      for n, S, Sx in sizes]
+        else:
+            levels = [QuasilinearFluxOp(n, S, a, a.da) for n, S in sizes]
+        if a_dense is not None:
+            raise ValueError("the quasilinear hierarchy has no a_dense")
+        return Hierarchy(levels, None)
+    if kind != "bratu":
+        raise ValueError(f'kind must be "bratu" or "quadratic", got {kind!r}')
+    phi = BratuNonlinearity(scalar)
+    levels = []
+    for idx, size in enumerate(sizes):
+        lin = (ConstStencilOp3D(*size) if ndim == 3 else poisson_op(*size))
+        dense = None
+        if idx == len(sizes) - 1 and a_dense is not None:
+            dense = tensor_from_numpy(a_dense, device)
+        levels.append(PointwiseNonlinearOp(lin, phi, phi, diag=2.0 * ndim,
+                                           a_dense=dense))
+    return Hierarchy(levels, None)
+
+
+def fas_state_to_numpy(u, b) -> tuple:
+    """A FAS state (iterate u, right-hand side b) of either package as
+    numpy arrays."""
+    return refinement_state_to_numpy((u, b))
+
+
+def fas_state_from_numpy(u, b, device=None) -> tuple:
+    """Numpy (u, b) as tensors on ``device``."""
+    return refinement_state_from_numpy((u, b), device)
 
 
 def result_to_numpy(result: SolveResult) -> dict:

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "tmt_transfer_tile": ([], _I),
     "tmt_transfer_max_steps": ([], _I),
@@ -94,6 +95,18 @@ _SIGNATURES = {
     "tmt_zebra_smooth_restrict": ([_P] * 5 + [_I] * 4 + [_P], _I),
     # u, b, ec, coef, u_out, partials, out_sum, S, Sc, n, sweeps, stream
     "tmt_zebra_prolong_smooth": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    # u, b, u_out, uc, bc, S, Sc, n, steps, kind, scalar, omega, h2, diag,
+    # stream
+    "tmt_fas_smooth_restrict": ([_P] * 5 + [_I] * 5 + [_F] * 4 + [_P], _I),
+    # u, b, ec, u_out, partials, out_sum, S, Sc, n, steps, kind, scalar,
+    # omega, h2, diag, stream
+    "tmt_fas_prolong_smooth": ([_P] * 6 + [_I] * 5 + [_F] * 4 + [_P], _I),
+    # u, b, u_out, uc, bc, Sz, Sy, Sx, Szc, Syc, Scx, n, steps, kind,
+    # scalar, omega, h2, diag, stream
+    "tmt_fas_smooth_restrict3": ([_P] * 5 + [_I] * 9 + [_F] * 4 + [_P], _I),
+    # u, b, ec, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx, n,
+    # steps, kind, scalar, omega, h2, diag, stream
+    "tmt_fas_prolong_smooth3": ([_P] * 6 + [_I] * 9 + [_F] * 4 + [_P], _I),
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,11 @@
 //   K1: `steps` smoothing steps, the residual r = b - A u', and the full-
 //       weighting restriction R = P^T / 2 of r, masked to the coarse
 //       interior; coarse nodes past S/2 along any axis are zero.  Writes u'
-//       and rc.
+//       and rc.  Its FAS variant (Fas = true, fas3d.cu) writes in rc's place
+//       the FAS coarse right-hand side bc = N_c(uc0) + R r, and also the
+//       solution injection uc0 = u'[2I, 2J, 2K]: the operator's
+//       coarse_apply evaluates N_c on u' at the even nodes, whose coarse
+//       neighbours lie two fine layers out, inside K1's halo.
 //   K2: u <- mask(u + P ec) with trilinear P, then `steps` smoothing steps;
 //       optionally one partial sum of (b - A u')^2 per block.  With ec null
 //       it is a smoothing pass alone: u is loaded as it is (a continuation
@@ -56,13 +60,13 @@ __device__ __forceinline__ float prolong3_at(const float* __restrict__ ec,
   return (i & 1) ? 0.5f * (py(I) + py(I + 1)) : py(I);
 }
 
-template <typename Op>
+template <typename Op, bool Fas>
 __global__ void __launch_bounds__(kThreads3)
 smooth_restrict3_kernel(const float* __restrict__ u,
                         const float* __restrict__ b,
                         float* __restrict__ u_out, float* __restrict__ rc,
-                        Grid3 g, Grid3 gc, int steps, int first_step,
-                        int rbgs, Weights wt, Op op) {
+                        float* __restrict__ uc, Grid3 g, Grid3 gc, int steps,
+                        int first_step, int rbgs, Weights wt, Op op) {
   extern __shared__ float smem[];
   const int halo = steps + 2;
   const int tyz = kW3yz - 2 * halo;   // even: the coarse tile is tyz / 2
@@ -81,7 +85,10 @@ smooth_restrict3_kernel(const float* __restrict__ u,
       const int K = xo / 2 + i % cx;
       const int J = yo / 2 + (i / cx) % cyz;
       const int I = zo / 2 + i / (cx * cyz);
-      if (I < gc.Sz && J < gc.Sy && K < gc.Sx) rc[gidx(gc, I, J, K)] = 0.0f;
+      if (I < gc.Sz && J < gc.Sy && K < gc.Sx) {
+        rc[gidx(gc, I, J, K)] = 0.0f;
+        if constexpr (Fas) uc[gidx(gc, I, J, K)] = 0.0f;
+      }
     }
     return;
   }
@@ -136,6 +143,7 @@ smooth_restrict3_kernel(const float* __restrict__ u,
     const int K = xo / 2 + ck;
     if (I >= gc.Sz || J >= gc.Sy || K >= gc.Sx) continue;
     float val = 0.0f;
+    float u0 = 0.0f;
     if (interior3(I, J, K, nc)) {
       const int k = (2 * ci + halo) * kW3Plane + (2 * cj + halo) * kW3x +
                     2 * ck + halo;
@@ -144,8 +152,20 @@ smooth_restrict3_kernel(const float* __restrict__ u,
         return t1(q) + 0.5f * (t1(q - kW3x) + t1(q + kW3x));
       };
       val = 0.5f * (t2(k) + 0.5f * (t2(k - kW3Plane) + t2(k + kW3Plane)));
+      if constexpr (Fas) {
+        // uc0 at coarse (I + dz, J + dy, K + dx): u' two fine layers out
+        // along each offset axis, 0 outside the coarse interior.
+        auto c = [&](int dz, int dy, int dx) {
+          return interior3(I + dz, J + dy, K + dx, nc)
+                     ? v[k + 2 * (dz * kW3Plane + dy * kW3x + dx)]
+                     : 0.0f;
+        };
+        u0 = v[k];
+        val = op.coarse_apply(u0, c) + val;
+      }
     }
     rc[gidx(gc, I, J, K)] = val;
+    if constexpr (Fas) uc[gidx(gc, I, J, K)] = u0;
   }
 }
 
@@ -227,28 +247,29 @@ prolong_smooth3_kernel(const float* __restrict__ u,
 
 // One K1 launch of `steps` steps starting at global step `first_step`.  The
 // grid covers 2 * Sc along each axis (>= S) so that the coarse tail past S/2
-// is zeroed too.
-template <typename Op>
+// is zeroed too.  Fas = true: the FAS variant, writing bc into rc and uc0
+// into uc.
+template <typename Op, bool Fas = false>
 cudaError_t launch_smooth_restrict3(const float* u, const float* b,
                                     float* u_out, float* rc, const Grid3& g,
                                     const Grid3& gc, int steps,
                                     int first_step, int rbgs,
                                     const Weights& wt, const Op& op,
-                                    cudaStream_t st) {
+                                    cudaStream_t st, float* uc = nullptr) {
   static int configured[kMaxDevices] = {};
   const int halo = steps + 2;
   if (steps < 0 || first_step < 0 || halo > kMaxHalo3) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_smem(smooth_restrict3_kernel<Op>, kWindow3Bytes,
-                               configured);
+  cudaError_t err = allow_smem(smooth_restrict3_kernel<Op, Fas>,
+                               kWindow3Bytes, configured);
   if (err != cudaSuccess) return err;
   const int tyz = kW3yz - 2 * halo;
   const dim3 grid(tiles(2 * gc.Sx, kW3x - 2 * halo), tiles(2 * gc.Sy, tyz),
                   tiles(2 * gc.Sz, tyz));
-  smooth_restrict3_kernel<Op><<<grid, dim3(kW3x, kThreads3Y), kWindow3Bytes,
-                                st>>>(u, b, u_out, rc, g, gc, steps,
-                                      first_step, rbgs, wt, op);
+  smooth_restrict3_kernel<Op, Fas><<<grid, dim3(kW3x, kThreads3Y),
+                                     kWindow3Bytes, st>>>(
+      u, b, u_out, rc, uc, g, gc, steps, first_step, rbgs, wt, op);
   return cudaGetLastError();
 }
 

@@ -114,6 +114,38 @@ __device__ float* smooth_window(float* v, float* spare, const float* bw,
   return v;
 }
 
+// Runs `steps` steps of a pointwise operator `op` on the window, each from
+// the state before it into the other buffer, and returns the buffer that
+// holds the result (the other one is free): op.step(v, bw, k, w) at
+// interior nodes, 0 at the other inner cells.  The outermost ring has no
+// neighbours and keeps its value: it is invalid after the first step.  The
+// FAS kernels (fas.cu) run their nonlinear Jacobi-Newton and Picard-Jacobi
+// steps here.
+template <typename Op>
+__device__ float* smooth_window_op(float* v, float* spare, const float* bw,
+                                   int w, int r0, int c0, int n, int steps,
+                                   const Op& op) {
+  for (int s = 0; s < steps; ++s) {
+    for (int li = threadIdx.y; li < w; li += blockDim.y) {
+      const int gi = r0 + li;
+      for (int lj = threadIdx.x; lj < w; lj += blockDim.x) {
+        const int gj = c0 + lj;
+        const int k = li * w + lj;
+        float out = v[k];
+        if (li > 0 && li < w - 1 && lj > 0 && lj < w - 1) {
+          out = is_interior(gi, gj, n) ? op.step(v, bw, k, w) : 0.0f;
+        }
+        spare[k] = out;
+      }
+    }
+    float* t = v;
+    v = spare;
+    spare = t;
+    __syncthreads();
+  }
+  return v;
+}
+
 // Two f32 windows for the iterate plus one for b.
 int window_bytes(int halo) {
   const int w = kTile + 2 * halo;

@@ -1,3 +1,6 @@
+from .bratu import (Bratu3DProblem, BratuProblem, NonlinearPoisson3DProblem,
+                    NonlinearPoissonProblem, build_pointwise_hierarchy,
+                    build_pointwise_hierarchy3)
 from .anisotropic import (AnisotropicPoissonProblem, anisotropic_poisson_op,
                           build_anisotropic_hierarchy)
 from .convection3d import (ConvectionDiffusion3DProblem, Directional7Op,
@@ -6,6 +9,10 @@ from .diffusion import DiffusionProblem, cell_coefficients
 from .diffusion3d import (Diffusion3DProblem, build_diffusion3d_hierarchy,
                           cell_coefficients3)
 from .helmholtz import HelmholtzProblem, helmholtz_op_host
+from .nldiffusion import (QuasilinearDiffusion3DProblem,
+                          QuasilinearDiffusionProblem,
+                          build_quasilinear_hierarchy,
+                          build_quasilinear_hierarchy3)
 from .poisson import PoissonProblem, boundary_grid, poisson_rhs
 from .poisson3d import Poisson3DProblem, boundary_grid3, poisson3d_rhs
 from .poisson4_3d import Poisson4_3DProblem, mehrstellen_rhs3
@@ -18,4 +25,8 @@ __all__ = ["PoissonProblem", "DiffusionProblem", "HelmholtzProblem",
            "cell_coefficients3", "ConvectionDiffusion3DProblem",
            "Directional7Op", "convection_diffusion_op3",
            "AnisotropicPoissonProblem", "anisotropic_poisson_op",
-           "build_anisotropic_hierarchy"]
+           "build_anisotropic_hierarchy", "BratuProblem", "Bratu3DProblem",
+           "NonlinearPoissonProblem", "NonlinearPoisson3DProblem",
+           "build_pointwise_hierarchy", "build_pointwise_hierarchy3",
+           "QuasilinearDiffusionProblem", "QuasilinearDiffusion3DProblem",
+           "build_quasilinear_hierarchy", "build_quasilinear_hierarchy3"]
