@@ -86,11 +86,28 @@ Phases, each printing its own lines:
    use_fmg=True), solve_nonlinear_poisson(9) with a caller's phi = u^3
    (no kernel launched; refused with use_kernels=True), and level 6 in
    float64 against scipy's sparse Newton solve.
+4j. The periodic slice (bc="periodic", the wrap-aware fused tier): K1-local,
+   K2-local and K2-local-resnorm bitwise against their plain versions over
+   the whole arrays (the resnorm's norm to 1e-4) at every pair the level-13
+   solve fuses, (8224, 8704) / (4128, 4608) down to (288, 768) /
+   (160, 640), Jacobi 1-3 steps, Chebyshev (3, 2), RB-GS 1 and 6 sweeps,
+   at the fused tier's origin (2, 2) with its virtual n and at two shard
+   origins with a real n; then, each with exact launch counts,
+   solve_poisson(13, bc="periodic") with Chebyshev (3, 2), coarsest level
+   5, on both routes, 5 fixed cycles and until tol 1e-6 with the stall rule
+   (iterations within 1, the mean-zero gauge to 1e-6); W and F cycles, RB-GS
+   (1, 1) and Jacobi (2, 2) at level 12 and an FMG start at level 13 on the
+   kernels; 10 seeded random mean-zero right-hand sides at level 12 on both
+   routes (the mean reduction per cycle); level 6 in float64 against
+   scipy's sparse direct solve; solve_poisson3d(9, bc="periodic") on the
+   plain torus operators, and 3D level 5 in float64 against a direct
+   Fourier solve.
 5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var, anisotropic,
-   FAS Bratu and quasilinear) and at 513^3 (3D, 3D var, FAS Bratu) on both
-   paths, one ts iteration at 16385^2 on both paths, and each kernel beside
-   its plain version (K1/K2/ds/ts at S = 8448, the var, zebra and FAS
-   kernels at 4352, the 3D ones at (528, 528, 640), the others at 16640),
+   FAS Bratu and quasilinear), at 513^3 (3D, 3D var, FAS Bratu) and the
+   periodic 8192^2 torus on both paths, one ts iteration at 16385^2 on both
+   paths, and each kernel beside its plain version (K1/K2/ds/ts at
+   S = 8448, the var, zebra and FAS kernels at 4352, the 3D ones at (528,
+   528, 640), K1-local and K2-local at (8224, 8704), the others at 16640),
    with CUDA events (median of 7 after warm-up), and the one PyTorch call
    that computes the same function where there is one.
 
@@ -138,6 +155,7 @@ _VT3 = "tpu_multigrid/kernels/vartransfer3d.py"
 _Z = "tpu_multigrid/kernels/lines.py"
 _F = "tpu_multigrid/kernels/fas.py"
 _F3 = "tpu_multigrid/kernels/fas3d.py"
+_L = "tpu_multigrid/kernels/local.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -184,10 +202,14 @@ REPLACES = {
     "qfas_smooth_restrict3": f"{_F3}:161",
     "qfas_prolong_smooth3": f"{_F3}:338",
     "qfas_prolong_smooth_resnorm3": f"{_F3}:338",
+    "smooth_restrict_ext": f"{_L}:216",
+    "prolong_smooth_ext": f"{_L}:341",
+    "prolong_smooth_ext_resnorm": f"{_L}:341",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
+                          else "local.cu" if REPLACES[name].startswith(_L)
                           else "fas3d.cu" if REPLACES[name].startswith(_F3)
                           else "fas.cu" if REPLACES[name].startswith(_F)
                           else "lines.cu" if REPLACES[name].startswith(_Z)
@@ -2305,6 +2327,428 @@ def phase_fas_slice():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# 4j. The periodic slice: bc="periodic" on the wrap-aware fused tier
+# ---------------------------------------------------------------------------
+
+PER_LEVEL = 13
+PER_W_LEVEL = 12
+PER3_LEVEL = 9
+PER_TOL = 1e-6
+# The extended (R, C) = (n + 2 GR, n + 2 GC) fine blocks of every pair the
+# level-13 periodic solve fuses (coarsest level 5): n = 8192 down to 256.
+PER_BLOCKS = [(n + 32, n + 512) for n in (8192, 4096, 2048, 1024, 512, 256)]
+# Fused levels of the level-13 and level-12 solves (n a multiple of 256).
+PER_DEPTH = {PER_LEVEL: 6, PER_W_LEVEL: 5}
+
+
+def per_forcing(x, y):
+    """8 pi^2 sin(2 pi x) cos(2 pi y): zero mean on the torus."""
+    return (8 * np.pi ** 2 * torch.sin(2 * np.pi * x)
+            * torch.cos(2 * np.pi * y))
+
+
+def per_forcing3(x, y, z):
+    return (12 * np.pi ** 2 * torch.sin(2 * np.pi * x)
+            * torch.sin(2 * np.pi * y) * torch.cos(2 * np.pi * z))
+
+
+def per_config(use_kernels, level=None, **kw):
+    """The slice's schedule: Chebyshev (3, 2), coarsest level 5."""
+    import tpu_multigrid_torch as tmg
+    kw = dict(dict(coarsest_level=5, smoother="chebyshev", nu1=3, nu2=2),
+              **kw)
+    return tmg.MultigridConfig(finest_level=level or PER_LEVEL,
+                               use_kernels=use_kernels, **kw)
+
+
+def per_visits(depth, cyc, k=0):
+    """Fused level visits of one cycle from fused level k, as the fused
+    tier recurses: W visits the next fused level twice, F once as F and
+    once as V; below the last fused level the protocol path runs."""
+    if k + 1 >= depth:
+        return 1
+    again = 0
+    if cyc in ("W", "F"):
+        again = per_visits(depth, cyc if cyc == "W" else "V", k + 1)
+    return 1 + per_visits(depth, cyc, k + 1) + again
+
+
+def per_counts(depth, cycles, cyc="V"):
+    """Launches of ``cycles`` fused cycles: K1-local at every fused visit,
+    K2-local at each but the finest, whose K2-local fuses the norm."""
+    visits = per_visits(depth, cyc)
+    return expect(smooth_restrict_ext=cycles * visits,
+                  prolong_smooth_ext=cycles * (visits - 1),
+                  prolong_smooth_ext_resnorm=cycles)
+
+
+def per_setup():
+    return HostSetup("tpu_multigrid_torch.problems.periodic",
+                     "build_periodic_hierarchy")
+
+
+def local_cases(u, b, ec, origin, n, sm, om1, sw1, om2, sw2):
+    """{entry: (kernel call, plain call)} of K1-local, K2-local and
+    K2-local-resnorm."""
+    from tpu_multigrid_torch.kernels import local as KL
+    k2 = (u, b, ec, origin, n, sw2, sm, om2)
+    return {
+        "smooth_restrict_ext": (
+            lambda: KL.smooth_restrict_ext(u, b, origin, n, sw1, sm, om1),
+            lambda: KL.smooth_restrict_ext_plain(u, b, origin, n, sw1, sm,
+                                                 om1)),
+        "prolong_smooth_ext": (
+            lambda: KL.prolong_smooth_ext(*k2),
+            lambda: KL.prolong_smooth_ext_plain(*k2)),
+        "prolong_smooth_ext_resnorm": (
+            lambda: KL.prolong_smooth_ext(*k2, want_resnorm=True),
+            lambda: KL.prolong_smooth_ext_resnorm_plain(*k2))}
+
+
+def phase_periodic_kernels(errs):
+    """K1-local, K2-local and K2-local-resnorm bitwise against their plain
+    versions over the whole arrays (the resnorm's norm to 1e-4), at every
+    pair the level-13 solve fuses; Jacobi 1-3 steps, Chebyshev (3, 2),
+    RB-GS 1 and 6 sweeps; at the fused tier's origin and virtual n, and at
+    two shard origins with a real n: the top-left block of a 2 x 2
+    decomposition (its ghosts outside the grid) and an interior block of a
+    4 x 4 one."""
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.kernels import local as KL
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(31)
+    cheb3, cheb2 = ops.chebyshev_omegas(3, 0.4), ops.chebyshev_omegas(2, 0.4)
+    smoothers = [("jacobi", 2.0 / 3.0, s, 2.0 / 3.0, s) for s in (1, 2, 3)]
+    smoothers += [("jacobi", cheb3, 3, cheb2, 2),
+                  ("rbgs", 2.0 / 3.0, 1, 2.0 / 3.0, 1),
+                  ("rbgs", 2.0 / 3.0, 6, 2.0 / 3.0, 6)]
+    for R, C in PER_BLOCKS:
+        lr, lc = R - 2 * KL.GR, C - 2 * KL.GC
+        origins = [((2, 2), 1 << 30), ((-KL.GR, -KL.GC), 2 * lr),
+                   ((lr - KL.GR, lc - KL.GC), 4 * lr)]
+        u = torch.randn((R, C), generator=gen, device=DEVICE)
+        b = torch.randn((R, C), generator=gen, device=DEVICE)
+        ec = torch.randn(KL.coarse_shape(R, C), generator=gen, device=DEVICE)
+        rel = 0.0
+        for origin, n in origins:
+            for sm, om1, sw1, om2, sw2 in smoothers:
+                for entry, (kern, plain) in local_cases(
+                        u, b, ec, origin, n, sm, om1, sw1, om2,
+                        sw2).items():
+                    got, want = kern(), plain()
+                    if entry == "prolong_smooth_ext_resnorm":
+                        track(errs, entry, got[0], want[0])
+                        rel = max(rel, track_norm(
+                            errs, entry, torch.sqrt(got[1]),
+                            torch.sqrt(want[1])))
+                    elif isinstance(got, tuple):
+                        for g, w in zip(got, want):
+                            track(errs, entry, g, w)
+                    else:
+                        track(errs, entry, got, want)
+        print(f"[periodic-kernels] ({R}, {C}) -> {KL.coarse_shape(R, C)}, "
+              f"origins {[o for o, _ in origins]}: Jacobi 1-3, Chebyshev "
+              f"(3, 2), RB-GS 1 and 6: K1-local u' and rc, K2-local, "
+              f"K2-local-resnorm u' bitwise equal over the whole arrays; "
+              f"resnorm norm rel {rel:.3g}")
+        del u, b, ec
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def gauge(u):
+    """|mean(u)| / max|u|, in float64."""
+    return float(u.double().mean().abs()) / float(u.abs().max())
+
+
+def per_route(tag, use, level=None, summary=None, **kw):
+    """One periodic door call with launch counts set to 0 just before it
+    and checked exactly after: (result, seconds with set-up, peak bytes)."""
+    import tpu_multigrid_torch as tmg
+    level = level or PER_LEVEL
+    cfg = per_config(use, level, **{k: kw.pop(k) for k in
+                                    ("cycle", "smoother", "nu1", "nu2")
+                                    if k in kw})
+    res, secs, host, peak = front_door3(tag, lambda: tmg.solve_poisson(
+        level, bc="periodic", forcing=per_forcing, config=cfg, device=DEVICE,
+        **kw), per_setup())
+    want = (per_counts(PER_DEPTH[level], res.iterations, cfg.cycle) if use
+            else expect())
+    got = PATH_COUNTS[tag]
+    check(got == want, f"{tag} launches {nonzero(got)}, expected "
+                       f"{nonzero(want)}")
+    check(tuple(res.u.shape) == (2 ** level,) * 2
+          and bool(torch.isfinite(res.u).all()), f"{tag}: bad solution")
+    g = gauge(res.u)
+    h = res.res_history[:res.iterations + 1]
+    red = float(h[-1] / h[0]) if res.iterations else 1.0
+    label = (f"solve_poisson({level}, bc='periodic', {cfg.cycle}, "
+             f"{cfg.smoother} ({cfg.nu1}, {cfg.nu2}), "
+             f"{', '.join(f'{k}={v}' for k, v in kw.items())}), "
+             f"{'kernels' if use else 'plain'}")
+    line = run_line(label, res, secs, host, peak, tag="periodic")
+    print(f"[periodic]   reduction {red:.4g} over {res.iterations} cycles; "
+          f"|mean u| / max|u| = {g:.3e}; launches {nonzero(got)}")
+    if summary is not None:
+        summary[tag] = dict(line, reduction=red, gauge=g)
+    return res
+
+
+def torus_direct(n, b):
+    """The float64 (n, n) torus system A u = b (diag 4, -1 per wrapped
+    neighbour) solved by scipy's sparse LU with node 0 pinned to 0, then
+    the mean removed: the mean-zero solution."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n)).tolil()
+    t[0, n - 1] = t[n - 1, 0] = -1.0
+    eye = sp.identity(n)
+    a = (sp.kron(t, eye) + sp.kron(eye, t)).tocsc()[1:, 1:]
+    rhs = b.reshape(-1)
+    x = np.concatenate([[0.0], spl.splu(a).solve(rhs[1:])])
+    return (x - x.mean()).reshape(b.shape)
+
+
+def torus_direct3(n, b):
+    """The float64 (n, n, n) torus system (diag 6, -1 per wrapped
+    neighbour) solved directly in its Fourier basis, which diagonalizes it:
+    u_k = b_k / (6 - 2 cos t1 - 2 cos t2 - 2 cos t3), the constant mode 0
+    (the mean-zero solution).  A sparse LU of the 32^3 torus fills in for
+    about a minute of a host core; the transform takes milliseconds."""
+    c = 2.0 * np.cos(2.0 * np.pi * np.fft.fftfreq(n))
+    lam = (6.0 - c[:, None, None] - c[None, :, None] - c[None, None, :])
+    lam[0, 0, 0] = 1.0
+    uk = np.fft.fftn(b) / lam
+    uk[0, 0, 0] = 0.0
+    return np.real(np.fft.ifftn(uk))
+
+
+def phase_periodic_slice():
+    """The periodic slice, each path with launch counts set to 0 just
+    before it and checked exactly after."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.cycles import periodic_fused as PF
+    summary = {}
+    # 1. The slice at 8193^2 nodes (8192^2 unknowns): 5 fixed cycles, then
+    # until tol with the stall rule, on both routes.
+    runs = {}
+    for use in (True, False):
+        suffix = "" if use else "-plain"
+        per_route(f"periodic-13-fixed{suffix}", use, num_cycles=5, tol=None,
+                  summary=summary)
+        runs[use] = per_route(f"periodic-13{suffix}", use, tol=PER_TOL,
+                              summary=summary)
+    rk, rp = runs[True], runs[False]
+    du = float((rk.u - rp.u).abs().max()) / float(rp.u.abs().max())
+    print(f"[periodic] level 13: iterations kernels / plain {rk.iterations} "
+          f"/ {rp.iterations}; max |u_kernels - u_plain| / max|u_plain| = "
+          f"{du:.3e}")
+    check(abs(rk.iterations - rp.iterations) <= 1,
+          f"periodic-13: iterations {rk.iterations} / {rp.iterations}")
+    for use, res in runs.items():
+        check(gauge(res.u) < 1e-6, f"periodic-13 (kernels={use}): the "
+              f"mean-zero gauge moved to {gauge(res.u):.3e}")
+    summary["periodic-13-du"] = du
+    del runs, rk, rp
+    # 2. W and F cycles at level 12, an FMG start at level 13 (the FMG pass
+    # runs the protocol path, its cycles the fused tier), RB-GS (1, 1) and
+    # Jacobi (2, 2) at level 12.
+    for cyc in ("W", "F"):
+        per_route(f"periodic-12-{cyc}", True, PER_W_LEVEL, summary,
+                  cycle=cyc, num_cycles=3, tol=None)
+    per_route("periodic-13-fmg", True, summary=summary, use_fmg=True,
+              num_cycles=2, tol=None)
+    for sm, nu in (("rbgs", 1), ("jacobi", 2)):
+        per_route(f"periodic-12-{sm}", True, PER_W_LEVEL, summary,
+                  smoother=sm, nu1=nu, nu2=nu, num_cycles=3, tol=None)
+    # 3. 10 seeded random mean-zero right-hand sides at level 12, 3 fixed
+    # cycles each on both routes over one hierarchy: the mean reduction per
+    # cycle (3 cycles stay above the float32 floor, ~6e-5 of r0 for a white
+    # noise right-hand side at level 12).
+    cfg_k, cfg_p = per_config(True, PER_W_LEVEL), per_config(False,
+                                                            PER_W_LEVEL)
+    prob = tmg.PeriodicPoissonProblem(cfg_k, forcing=per_forcing,
+                                      device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(32)
+    n = 2 ** PER_W_LEVEL
+    rates = {True: [], False: []}
+
+    def rand_runs():
+        for _ in range(10):
+            b = torch.randn((n, n), generator=gen, device=DEVICE)
+            b = b - b.mean()
+            rk = PF.solve_fixed_periodic(prob.hierarchy, cfg_k, b, 3)
+            rp = tmg.solve_fixed(prob.hierarchy, cfg_p, b, 3)
+            for use, r in ((True, rk), (False, rp)):
+                h = r.res_history.double()
+                rates[use].append(float((h[-1] / h[0]) ** (1 / 3)))
+    drive("periodic-12-random", rand_runs)
+    check(PATH_COUNTS["periodic-12-random"]
+          == per_counts(PER_DEPTH[PER_W_LEVEL], 30),
+          f"periodic-12-random launches "
+          f"{nonzero(PATH_COUNTS['periodic-12-random'])}")
+    mean_k = float(np.mean(rates[True]))
+    mean_p = float(np.mean(rates[False]))
+    print(f"[periodic] 10 random mean-zero right-hand sides at level 12, 3 "
+          f"cycles each: mean reduction per cycle kernels {mean_k:.4f}, "
+          f"plain {mean_p:.4f} (per rhs: kernels "
+          f"{[round(r, 4) for r in rates[True]]})")
+    check(mean_k < 0.2 and abs(mean_k - mean_p) <= 0.1 * mean_p,
+          f"random rhs: reduction per cycle {mean_k} / {mean_p}")
+    summary["random12_reduction_kernels"] = mean_k
+    summary["random12_reduction_plain"] = mean_p
+    del prob
+    torch.cuda.empty_cache()
+    # 4. Level 6 in float64 (no kernel takes it) against scipy's sparse
+    # direct solve, both in the mean-zero gauge.
+    c6 = tmg.MultigridConfig(finest_level=6, coarsest_level=3,
+                             smoother="chebyshev", nu1=3, nu2=2,
+                             dtype=torch.float64, use_kernels=True)
+    r6 = drive("periodic-6-f64", lambda: tmg.solve_poisson(
+        6, bc="periodic", forcing=per_forcing, config=c6, tol=1e-13,
+        device=DEVICE))
+    check(PATH_COUNTS["periodic-6-f64"] == expect(),
+          "the float64 level-6 periodic solve launched kernels")
+    b6 = tmg.PeriodicPoissonProblem(c6, forcing=per_forcing,
+                                    device=DEVICE).rhs()
+    ref = torus_direct(64, b6.cpu().numpy())
+    got = r6.u.cpu().numpy()
+    err = float(np.abs((got - got.mean()) - ref).max() / np.abs(ref).max())
+    print(f"[periodic] level 6, float64: {var_state(r6)} after "
+          f"{r6.iterations} iterations; vs scipy's sparse direct solve (node "
+          f"0 pinned, mean removed): rel err {err:.3e}")
+    check(r6.converged and err <= 1e-10, f"level-6 periodic rel err {err}")
+    summary["level6_f64_rel_err"] = err
+    # 5. 3D: solve_poisson3d(9, bc="periodic") on the plain torus operators
+    # (no kernel takes them), 3 fixed cycles and until tol; level 5 in
+    # float64 against the direct Fourier solve.
+    for tag, kw in (("periodic3-9-fixed", dict(num_cycles=3, tol=None)),
+                    ("periodic3-9", dict())):
+        res, secs, host, peak = front_door3(tag, lambda: tmg.solve_poisson3d(
+            PER3_LEVEL, bc="periodic", forcing=per_forcing3, device=DEVICE,
+            **kw), HostSetup("tpu_multigrid_torch.problems.periodic3d",
+                             "build_periodic3_hierarchy"))
+        check(PATH_COUNTS[tag] == expect(), f"{tag} launched kernels")
+        check(bool(torch.isfinite(res.u).all())
+              and tuple(res.u.shape) == (2 ** PER3_LEVEL,) * 3,
+              f"{tag}: bad solution")
+        line = run_line(f"solve_poisson3d({PER3_LEVEL}, bc='periodic', "
+                        f"{kw or 'tol=1e-8'}), plain", res, secs, host, peak,
+                        tag="periodic")
+        print(f"[periodic]   |mean u| / max|u| = {gauge(res.u):.3e}")
+        summary[tag] = line
+        del res
+    torch.cuda.empty_cache()
+    c5 = tmg.MultigridConfig(finest_level=5, coarsest_level=2,
+                             smoother="chebyshev", nu1=3, nu2=2,
+                             dtype=torch.float64)
+    r5 = drive("periodic3-5-f64", lambda: tmg.solve_poisson3d(
+        5, bc="periodic", forcing=per_forcing3, config=c5, tol=1e-13,
+        device=DEVICE))
+    b5 = tmg.Periodic3DPoissonProblem(c5, forcing=per_forcing3,
+                                      device=DEVICE).rhs()
+    ref = torus_direct3(32, b5.cpu().numpy())
+    got = r5.u.cpu().numpy()
+    err3 = float(np.abs((got - got.mean()) - ref).max() / np.abs(ref).max())
+    print(f"[periodic] 3D level 5, float64: {var_state(r5)} after "
+          f"{r5.iterations} iterations; vs the direct Fourier solve (mean "
+          f"removed): rel err {err3:.3e}")
+    check(r5.converged and err3 <= 1e-10, f"3D level-5 rel err {err3}")
+    summary["level5_3d_f64_rel_err"] = err3
+    return summary
+
+
+def local_work(R, C, steps1, steps2):
+    """(bytes, operations) of the three entries on an (R, C) block of the
+    fused tier, where every cell is live: K1-local reads u and b and writes
+    u' and the coarse block; K2-local reads u, b and the (R/2 + 1, C/2 + 1)
+    coarse cells P reads, and writes u'; K2-local-resnorm also writes the
+    sum, and its residual counts the owned cells."""
+    Rc, Cc = R // 2 + 16, C // 2 + 256
+    cells, owned = R * C, (R - 32) * (C - 512)
+    k2 = 4 * (3 * cells + (R // 2 + 1) * (C // 2 + 1))
+    return {
+        "smooth_restrict_ext": (4 * (3 * cells + Rc * Cc),
+                                (steps1 * JAC + RES) * cells
+                                + FW * cells // 4),
+        "prolong_smooth_ext": (k2, (PRO + steps2 * JAC) * cells),
+        "prolong_smooth_ext_resnorm": (
+            k2 + 4, (PRO + steps2 * JAC) * cells + (RES + 2) * owned)}
+
+
+def periodic_times(card, times, work):
+    """The periodic 8192^2 V-cycle on both routes (the fused tier's cycle
+    on the extended state, with its norm, against the protocol path's),
+    with the host's time to issue it and the plain levels' share, and
+    each new kernel at the finest pair beside its plain version (Chebyshev
+    3 for K1-local, 2 for K2-local).  No PyTorch call computes these
+    functions: no library time."""
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.cycles import cycle, cycle_with_norm
+    from tpu_multigrid_torch.cycles import periodic_fused as PF
+    import tpu_multigrid_torch as tmg
+    dof = (2 ** PER_LEVEL) ** 2
+    cfg_k, cfg_p = per_config(True), per_config(False)
+    prob = tmg.PeriodicPoissonProblem(cfg_k, forcing=per_forcing,
+                                      device=DEVICE)
+    hier, b = prob.hierarchy, prob.rhs()
+    depth = PF.fused_levels(hier, cfg_k, b.dtype)
+    ue, be = PF.extend(torch.zeros_like(b)), PF.extend(b)
+    u = torch.zeros_like(b)
+    for use, fn in ((True, lambda: PF.cycle_with_norm_ext(hier, cfg_k, ue, be,
+                                                          depth)),
+                    (False, lambda: cycle_with_norm(hier, cfg_p, u, b))):
+        ms = cuda_ms(fn)
+        key = "periodic_vcycle" if use else "periodic_vcycle_plain"
+        times[key] = ms
+        # The host's time to issue one cycle (no cycle syncs with the host).
+        issue = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        times[key + "_issue"] = statistics.median(issue)
+        print(f"[times] periodic V-cycle at {2 ** PER_LEVEL}^2 (torus), "
+              f"Chebyshev (3,2), coarsest 5, "
+              f"{'kernels' if use else 'plain  '}: {ms:.3f} ms, "
+              f"{dof / (ms * 1e-3):.4g} DOF/s; host issue "
+              f"{times[key + '_issue']:.3f} ms  ({card})")
+    # The plain levels below the fused ones, alone: one V-cycle from the
+    # last fused level's coarse grid (128^2) down to the 32^2 coarsest.
+    nc = 2 ** PER_LEVEL >> depth
+    rc = torch.randn((nc, nc), generator=torch.Generator(
+        device=DEVICE).manual_seed(34), device=DEVICE)
+    rc = rc - rc.mean()
+    ms = cuda_ms(lambda: cycle(hier, cfg_k, torch.zeros_like(rc), rc, depth))
+    times["periodic_plain_tail"] = ms
+    print(f"[times]   its plain levels {nc}^2 to {hier.levels[-1].n}^2 alone "
+          f"(one V-cycle from a zero guess): {ms:.3f} ms  ({card})")
+    del prob, hier, b, ue, be, u, rc
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(33)
+    R, C = PER_BLOCKS[0]
+    u = torch.randn((R, C), generator=gen, device=DEVICE)
+    b = torch.randn((R, C), generator=gen, device=DEVICE)
+    ec = torch.randn((R // 2 + 16, C // 2 + 256), generator=gen,
+                     device=DEVICE)
+    cases = local_cases(u, b, ec, (2, 2), 1 << 30, "jacobi",
+                        ops.chebyshev_omegas(3, 0.4), 3,
+                        ops.chebyshev_omegas(2, 0.4), 2)
+    work.update(local_work(R, C, 3, 2))
+    for name, (kern, plain) in cases.items():
+        times[name] = (cuda_ms(kern), cuda_ms(plain))
+        k, p = times[name]
+        bms, by = bound(*work[name])
+        print(f"[times] {name:27s} ({R}, {C}): kernel {k:.3f} ms, plain "
+              f"{p:.3f} ms, bound {bms:.3f} ms ({by})  ({card})")
+    del u, b, ec, cases
+    torch.cuda.empty_cache()
+
+
 # Float32 operations per node, counted from the 3D kernels' sources: a
 # Jacobi step of the 7-point stencil (6 adds, 2 multiplies, 1 add), an RB-GS
 # half-step on the half of the nodes it updates (7 each), the residual (8);
@@ -2697,6 +3141,7 @@ def phase_times(card, prob_var, prob_var3, prob_aniso):
     var3_times(card, prob_var3, times, work)
     aniso_times(card, prob_aniso, times, work)
     fas_times(card, times, work)
+    periodic_times(card, times, work)
     return times, work, library
 
 
@@ -2962,6 +3407,8 @@ def main():
     record_aniso = phase_aniso_slice(prob_aniso, host_a, setup_a)
     phase_fas_kernels(errs)
     record_fas = phase_fas_slice()
+    phase_periodic_kernels(errs)
+    record_periodic = phase_periodic_slice()
     times, work, library = phase_times(card, prob_var, prob_var3, prob_aniso)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
@@ -2972,6 +3419,7 @@ def main():
     print(f"[var3d] summary: {json.dumps(record_var3d)}")
     print(f"[aniso] summary: {json.dumps(record_aniso)}")
     print(f"[fas] summary: {json.dumps(record_fas)}")
+    print(f"[periodic] summary: {json.dumps(record_periodic)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

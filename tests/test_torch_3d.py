@@ -431,8 +431,7 @@ def test_hierarchy3d_from_numpy():
     assert isinstance(h4.levels[0], operators.Const19Op)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"neumann": ("zlo",)},
-                                {"bc": "periodic"}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"neumann": ("zlo",)}])
 def test_unported_3d_options_raise(kw):
     _, ct = _configs(4, coarsest_level=2)
     with pytest.raises(NotImplementedError):

@@ -879,3 +879,78 @@ def test_fas_kernel_path_solve_matches_plain_path(gen):
         assert abs(rp.iterations - it) <= 1
         torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
                                    rtol=1e-3, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K1-local and K2-local (kernels/local.py) and the periodic fused tier
+# ---------------------------------------------------------------------------
+
+# (R, C) blocks: the smallest the gate takes, and a 512^2 shard's.  Origins:
+# the fused tier's (2, 2) with its virtual n, and the top-left shard of a
+# 2 x 2 decomposed grid, whose ghosts lie outside the grid.
+LOCAL_BLOCKS = [(288, 768), (544, 1024)]
+LOCAL_SMOOTHERS = [("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+                   ("jacobi", 2.0 / 3.0, 1), ("rbgs", 2.0 / 3.0, 1),
+                   ("rbgs", 2.0 / 3.0, 6)]
+
+
+@pytest.mark.parametrize("R,C", LOCAL_BLOCKS)
+@pytest.mark.parametrize("fused_origin", [True, False])
+@pytest.mark.parametrize("smoother,omega,sweeps", LOCAL_SMOOTHERS)
+def test_local_kernels_match_plain_bitwise(gen, R, C, fused_origin,
+                                           smoother, omega, sweeps):
+    from tpu_multigrid_torch.kernels import local
+    origin, n = ((2, 2), 1 << 30) if fused_origin else ((-16, -256),
+                                                        2 * (R - 32))
+    u = torch.randn((R, C), generator=gen, device="cuda")
+    b = torch.randn((R, C), generator=gen, device="cuda")
+    ec = torch.randn(local.coarse_shape(R, C), generator=gen, device="cuda")
+    ku, krc = local.smooth_restrict_ext(u, b, origin, n, sweeps, smoother,
+                                        omega)
+    pu, prc = local.smooth_restrict_ext_plain(u, b, origin, n, sweeps,
+                                              smoother, omega)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    args = (u, b, ec, origin, n, sweeps, smoother, omega)
+    want = local.prolong_smooth_ext_plain(*args)
+    assert torch.equal(local.prolong_smooth_ext(*args), want)
+    ku2, kss = local.prolong_smooth_ext(*args, want_resnorm=True)
+    _, pss = local.prolong_smooth_ext_resnorm_plain(*args)
+    assert torch.equal(ku2, want)
+    torch.testing.assert_close(kss, pss, rtol=1e-5, atol=0)
+    assert torch.equal(local.prolong_smooth_ext(*args, want_resnorm=True)[1],
+                       kss)
+
+
+def test_periodic_kernel_route_launches_and_matches_plain_route(gen):
+    """solve_poisson(10, bc="periodic") on the fused tier: 1024^2, 512^2
+    and 256^2 fuse (coarsest level 5), so each V-cycle launches K1-local 3
+    times, K2-local twice and K2-local-resnorm once; the protocol route
+    launches nothing and takes the same iterations within 1.  tol 1e-2:
+    the float32 floor of this h^2-scaled right-hand side is ~3e-3 of r0 at
+    level 10."""
+    import math
+
+    def forcing(x, y):
+        return (8 * math.pi ** 2 * torch.sin(2 * math.pi * x)
+                * torch.cos(2 * math.pi * y))
+    cfg = tmg.MultigridConfig(finest_level=10, coarsest_level=5,
+                              smoother="chebyshev", nu1=3, nu2=2,
+                              use_kernels=True)
+    kernels.reset_launch_counts()
+    rk = tmg.solve_poisson(10, bc="periodic", forcing=forcing, config=cfg,
+                           tol=1e-2, device="cuda")
+    counts = kernels.launch_counts()
+    it = rk.iterations
+    want = dict.fromkeys(counts, 0)
+    want.update({"smooth_restrict_ext": 3 * it, "prolong_smooth_ext": 2 * it,
+                 "prolong_smooth_ext_resnorm": it})
+    assert counts == want and rk.converged
+    assert rk.u.shape == (1024, 1024)
+    assert abs(float(rk.u.mean())) < 1e-6 * float(rk.u.abs().max())
+    rp = tmg.solve_poisson(10, bc="periodic", forcing=forcing, tol=1e-2,
+                           config=dataclasses.replace(cfg, use_kernels=False),
+                           device="cuda")
+    assert kernels.launch_counts() == counts
+    assert abs(rp.iterations - it) <= 1
+    torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
+                               rtol=3e-3, atol=0)

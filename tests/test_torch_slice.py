@@ -234,8 +234,8 @@ def test_interop_round_trip():
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"neumann": ("left",)}, {"bc": "periodic"},
-    {"order": 4}, {"smooth_dtype": torch.bfloat16}])
+    {"mesh": object()}, {"neumann": ("left",)}, {"order": 4},
+    {"smooth_dtype": torch.bfloat16}])
 def test_unported_front_door_options_raise(kw):
     kw = dict(kw)
     cfg = tmg.MultigridConfig(finest_level=5, coarsest_level=3,

@@ -21,7 +21,10 @@ tensor, Galerkin coarse operators, zebra line relaxation on full
 coarsening) with the zebra smoother, K1z and K2z as CUDA kernels; and the
 nonlinear FAS tier in 2D and 3D (``solve_bratu``,
 ``solve_nonlinear_poisson``, ``solve_quasilinear_diffusion``) with K1f, K2f,
-K1f_3 and K2f_3 as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`).  The
+K1f_3 and K2f_3 as CUDA kernels; and the periodic torus
+(``bc="periodic"`` of ``solve_poisson`` and ``solve_poisson3d``) with the
+wrap-aware fused tier on K1-local and K2-local, the ghost-extended level-
+visit kernels, as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`).  The
 front doors run on the card unless the caller passes ``device``.
 """
 
@@ -44,6 +47,7 @@ from .problems import (AnisotropicPoissonProblem, Bratu3DProblem,
                        BratuProblem, ConvectionDiffusion3DProblem,
                        Diffusion3DProblem, DiffusionProblem, HelmholtzProblem,
                        NonlinearPoisson3DProblem, NonlinearPoissonProblem,
+                       Periodic3DPoissonProblem, PeriodicPoissonProblem,
                        Poisson3DProblem, Poisson4_3DProblem, PoissonProblem,
                        QuasilinearDiffusion3DProblem,
                        QuasilinearDiffusionProblem)
@@ -64,5 +68,6 @@ __all__ = [
     "QuasilinearDiffusion3DProblem", "BratuNonlinearity",
     "QuadraticCoefficient", "PointwiseNonlinearOp", "QuasilinearFluxOp",
     "QuasilinearFluxOp3", "fas_cycle", "fas_solve_fixed",
-    "fas_solve_until_tol", "fmg_fas",
+    "fas_solve_until_tol", "fmg_fas", "PeriodicPoissonProblem",
+    "Periodic3DPoissonProblem",
 ]

@@ -6,6 +6,7 @@ convection-diffusion (``solve_convection_diffusion3d``) problems, and the
 nonlinear FAS solves (``solve_nonlinear_poisson``, ``solve_bratu``,
 ``solve_quasilinear_diffusion``, 2D and 3D).
 
+Both Poisson doors also solve on the periodic torus (``bc="periodic"``).
 Every entry runs on ``device``; ``device=None`` means the card
 (``config.default_device``), and raises where there is none.
 """
@@ -32,6 +33,8 @@ from .problems.diffusion3d import Diffusion3DProblem
 from .problems.helmholtz import HelmholtzProblem
 from .problems.nldiffusion import (QuasilinearDiffusion3DProblem,
                                    QuasilinearDiffusionProblem)
+from .problems.periodic import PeriodicPoissonProblem
+from .problems.periodic3d import Periodic3DPoissonProblem
 from .problems.poisson import PoissonProblem, boundary_grid
 from .problems.poisson3d import Poisson3DProblem, boundary_grid3
 from .problems.poisson4_3d import Poisson4_3DProblem
@@ -67,16 +70,25 @@ def solve_poisson(
     the plain f32 iterate cannot converge.  ``boundary`` (a constant or
     ``g(x, y)``) imposes inhomogeneous Dirichlet values via lifting.
 
+    ``bc="periodic"`` solves on the unit torus: ``forcing`` must be a
+    zero-mean callable, ``result.u`` is the (n, n) grid of the unique nodes
+    in its mean-zero gauge (:func:`extract_solution` closes it), and
+    ``boundary``, ``refined`` and ``order=4`` raise ``ValueError``.  With
+    ``use_kernels`` on float32 and ``tol`` or ``num_cycles`` given, the
+    levels whose n is a multiple of 256 run the fused tier on K1-local and
+    K2-local (``cycles.periodic_fused``); the rest, and an FMG start, run
+    the plain torus operators.
+
     Not ported yet (each raises ``NotImplementedError``): ``mesh``,
-    ``neumann``, ``bc="periodic"``, ``order=4``, and a ``smooth_dtype``
-    other than ``dtype``.
+    ``neumann``, ``order=4``, and a ``smooth_dtype`` other than ``dtype``.
     """
     config = _level_config(config, finest_level)
     _check_single_device(config, mesh)
     if neumann:
         raise NotImplementedError("neumann sides are not ported yet")
     if bc == "periodic":
-        raise NotImplementedError('bc="periodic" is not ported yet')
+        return _solve_periodic(config, forcing, boundary, refined, order, tol,
+                               max_cycles, num_cycles, use_fmg, device)
     if bc != "dirichlet":
         raise ValueError(f'bc must be "dirichlet" or "periodic", got {bc!r}')
     if order == 4:
@@ -92,6 +104,28 @@ def solve_poisson(
                              **_pad_kw(config))
     return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
                 refined=refined, boundary=boundary)
+
+
+def _solve_periodic(config, forcing, boundary, refined, order, tol,
+                    max_cycles, num_cycles, use_fmg, device) -> SolveResult:
+    """``solve_poisson(bc="periodic")``: the fused tier where its gate takes
+    the finest level, else the protocol path."""
+    from .cycles.periodic_fused import (fused_levels, solve_fixed_periodic,
+                                        solve_until_tol_periodic)
+    if boundary is not None or refined or order != 2:
+        raise ValueError("bc='periodic' is incompatible with "
+                         "boundary/neumann/refined/order options")
+    problem = PeriodicPoissonProblem(config, forcing=forcing, device=device)
+    hier = problem.hierarchy
+    if (tol is None and num_cycles is None) or fused_levels(
+            hier, config, config.dtype) == 0:
+        return _run(problem, config, tol, max_cycles, num_cycles, use_fmg)
+    b = problem.rhs()
+    u0 = fmg(hier, config, b) if use_fmg else None
+    if num_cycles is not None:
+        return solve_fixed_periodic(hier, config, b, num_cycles, u0=u0)
+    return solve_until_tol_periodic(hier, config, b, tol=tol,
+                                    max_cycles=max_cycles, u0=u0)
 
 
 def solve_diffusion(
@@ -262,11 +296,14 @@ def solve_poisson3d(
     its smoothed right-hand side.  ``refined=True`` runs compensated
     double-single refinement: the f32 residual floor in 3D grows like
     eps n^2.  The default config is Chebyshev (3, 2), with the kernels on
-    when the solve runs on the card.
+    when the solve runs on the card.  ``bc="periodic"`` solves on the unit
+    3-torus (a zero-mean callable ``forcing``; ``result.u`` is the (n, n,
+    n) grid of the unique nodes, mean-zero) on the plain torus operators,
+    whatever the config's ``use_kernels``; ``refined`` and ``boundary``
+    raise ``ValueError`` there.
 
     Not ported yet (each raises ``NotImplementedError``): ``mesh``,
-    ``neumann``, ``bc="periodic"``, and a ``smooth_dtype`` other than
-    ``dtype``.
+    ``neumann``, and a ``smooth_dtype`` other than ``dtype``.
     """
     device = default_device(device)
     config = _config3(config, finest_level, "chebyshev", device, nu1=3,
@@ -285,7 +322,13 @@ def solve_poisson3d(
     if order != 2:
         raise ValueError(f"order must be 2 or 4, got {order}")
     if bc == "periodic":
-        raise NotImplementedError('bc="periodic" (3D) is not ported yet')
+        if refined or boundary is not None:
+            raise ValueError("bc='periodic' (3D) supports the unrefined "
+                             "path (and has no boundary)")
+        pcfg = dataclasses.replace(config, use_kernels=False)
+        problem = Periodic3DPoissonProblem(pcfg, forcing=forcing,
+                                           device=device)
+        return _run(problem, pcfg, tol, max_cycles, num_cycles, use_fmg)
     if bc != "dirichlet":
         raise ValueError(f'bc must be "dirichlet" or "periodic", got {bc!r}')
     problem = Poisson3DProblem(config, forcing=forcing, align=16,
@@ -625,5 +668,14 @@ def solve_quasilinear_diffusion(
 
 
 def extract_solution(result_u: torch.Tensor, n: int) -> torch.Tensor:
-    """Crop the padded solve grid to the physical (n+1,)^d node grid."""
+    """Crop the padded solve grid to the physical (n+1,)^d node grid.
+
+    A periodic result (``bc="periodic"``) is the (n,)^d grid of the unique
+    torus nodes: the closing row and column (node n is node 0) are appended
+    by wrap, so it comes out as the same (n+1,)^d closed node grid as the
+    Dirichlet results."""
+    if result_u.shape[-1] == n:
+        for ax in range(result_u.ndim):
+            result_u = torch.cat([result_u, result_u.narrow(ax, 0, 1)], ax)
+        return result_u
     return result_u[(slice(0, n + 1),) * result_u.ndim]

@@ -137,8 +137,18 @@ def _probed_inverse(op, dtype, device) -> torch.Tensor:
 
 
 def _unknown_slices(op) -> tuple:
-    """Per-axis slices of the operator's unknowns: the Dirichlet interior
-    ``1..n-1`` along each of its ``ndim`` axes."""
+    """Per-axis slices of the operator's unknowns: the operator's own
+    ``unknown_slices`` where it has them (the periodic torus, where every
+    node is an unknown), else its ``box`` ``(i0, i1, j0, j1)`` (inclusive
+    bounds), else the Dirichlet interior ``1..n-1`` along each of its
+    ``ndim`` axes."""
+    us = getattr(op, "unknown_slices", None)
+    if us is not None:
+        return tuple(us)
+    box = getattr(op, "box", None)
+    if box is not None:
+        i0, i1, j0, j1 = box
+        return (slice(i0, i1 + 1), slice(j0, j1 + 1))
     return (slice(1, op.n),) * getattr(op, "ndim", 2)
 
 

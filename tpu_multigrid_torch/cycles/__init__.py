@@ -20,7 +20,11 @@ that passes :func:`_use_var_super_kernels3` is K1v_3 and K2v_3, other such
 levels run their plain operators (the JAX package has no 3D var smoother
 kernel); and the zebra_x line smoother: a variable-coefficient pair that
 passes :func:`_use_zebra_super_kernels` is K1z and K2z, other kernel-sized
-levels run the zebra smoother kernel (``kernels.lines``).
+levels run the zebra smoother kernel (``kernels.lines``).  A coarse
+operator that owns its transfer pair (the periodic torus levels:
+``restrict_into`` / ``prolong_add_into``) restricts and prolongs on the
+plain level visit and in FMG, as in the JAX package; the torus's fused
+tier is ``cycles.periodic_fused``.
 """
 
 from __future__ import annotations
@@ -203,6 +207,23 @@ def _prolong_add(u, e, nc: int, Sf, cfg: MultigridConfig, ndim: int = 2):
             and _transfer_kernels_ok(Sf, e.shape[-1], cfg, u.dtype)):
         return _t.prolong_add(u, e, 2 * nc)
     return u + _prolong(e, nc, Sf, cfg)
+
+
+def _restrict_level(op, opc, r, cfg: MultigridConfig):
+    """The fine residual restricted to the coarse level: the coarse
+    operator's own ``restrict_into`` where it has one (the periodic torus
+    levels own their transfer pair), else the configured restriction."""
+    if hasattr(opc, "restrict_into"):
+        return opc.restrict_into(r, op)
+    return _restrict(r, op.n, _tshape(opc), cfg, _ndim(op))
+
+
+def _prolong_add_level(op, opc, u, ec, cfg: MultigridConfig):
+    """u + P ec, by the coarse operator's ``prolong_add_into`` where it
+    has one, else the configured prolongation."""
+    if hasattr(opc, "prolong_add_into"):
+        return opc.prolong_add_into(u, ec, op)
+    return _prolong_add(u, ec, opc.n, _tshape(op), cfg, _ndim(op))
 
 
 def _sdt_kernel(cfg: MultigridConfig, dtype):
@@ -437,11 +458,11 @@ def cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
         u, rc = fused[0](op, opc, cfg, u, b)
     else:
         u, r = _smooth_residual(op, u, b, cfg, cfg.nu1)
-        rc = _restrict(r, op.n, _tshape(opc), cfg, _ndim(op))
+        rc = _restrict_level(op, opc, r, cfg)
     ec = _coarse_cycles(hier, cfg, rc, k + 1)
     if fused:
         return fused[1](op, cfg, u, b, ec)
-    u = _prolong_add(u, ec, opc.n, _tshape(op), cfg, _ndim(op))
+    u = _prolong_add_level(op, opc, u, ec, cfg)
     return _smooth(op, u, b, cfg, cfg.nu2)
 
 
@@ -483,8 +504,8 @@ def fmg_rhs_hierarchy(hier: Hierarchy, cfg: MultigridConfig, b_fine,
         return list(b_levels)
     bs = [b_fine]
     for k in range(hier.num_levels - 1):
-        op, opc = hier.levels[k], hier.levels[k + 1]
-        bs.append(_restrict(bs[-1], op.n, _tshape(opc), cfg, _ndim(op)))
+        bs.append(_restrict_level(hier.levels[k], hier.levels[k + 1], bs[-1],
+                                  cfg))
     return bs
 
 
@@ -500,8 +521,7 @@ def fmg(hier: Hierarchy, cfg: MultigridConfig, b_fine,
             u = _coarsest_solve(hier, cfg, u, bs[kc])
     for k in range(kc - 1, -1, -1):
         op = hier.levels[k]
-        u = _prolong_add(_zeros(op, u), u, hier.levels[k + 1].n, _tshape(op),
-                         cfg, _ndim(op))
+        u = _prolong_add_level(op, hier.levels[k + 1], _zeros(op, u), u, cfg)
         for _ in range(cfg.nu0):
             u = cycle(hier, cfg, u, bs[k], k)
     return u

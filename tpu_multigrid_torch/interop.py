@@ -19,6 +19,8 @@ from .core.operators import (Const19Op, ConstStencilOp3D, VarStencilOp,
                              VarStencilOp3D, poisson_op)
 from .cycles import SolveResult
 from .problems.convection3d import Directional7Op
+from .problems.periodic import PeriodicOp
+from .problems.periodic3d import PeriodicOp3
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
            "float32": torch.float32, "float64": torch.float64}
@@ -124,6 +126,21 @@ def var3_hierarchy_from_numpy(levels, coarse_inv=None,
                 c2=put("c2", lv), t_minus=put("t_minus", lv),
                 coef_stack=put("coef_stack", lv)))
     inv = None if coarse_inv is None else tensor_from_numpy(coarse_inv, device)
+    return Hierarchy(ops_, inv)
+
+
+def periodic_hierarchy_from_numpy(levels, pinv=None, ndim: int = 2,
+                                  device=None) -> Hierarchy:
+    """A torus hierarchy from the JAX one's level sides ``n``, finest
+    first, and its coarse dense pseudo-inverse (numpy, or None when the
+    coarsest level is smoothed), as a tensor on ``device``: ``PeriodicOp``
+    levels, or ``PeriodicOp3`` ones with ``ndim=3``.  The torus levels hold
+    no arrays, so the pseudo-inverse is all that crosses."""
+    if ndim not in (2, 3):
+        raise ValueError(f"ndim must be 2 or 3, got {ndim}")
+    cls = PeriodicOp3 if ndim == 3 else PeriodicOp
+    ops_ = tuple(cls(int(n)) for n in levels)
+    inv = None if pinv is None else tensor_from_numpy(pinv, device)
     return Hierarchy(ops_, inv)
 
 

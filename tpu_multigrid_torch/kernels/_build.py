@@ -107,6 +107,11 @@ _SIGNATURES = {
     # u, b, ec, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx, n,
     # steps, kind, scalar, omega, h2, diag, stream
     "tmt_fas_prolong_smooth3": ([_P] * 6 + [_I] * 9 + [_F] * 4 + [_P], _I),
+    # u, b, u_out, rc, R, C, o0, o1, n, steps, rbgs, weights, count, stream
+    "tmt_smooth_restrict_ext": ([_P] * 4 + [_I] * 7 + [_P, _I, _P], _I),
+    # u, b, ec, u_out, partials, out_sum, R, C, o0, o1, n, steps, rbgs,
+    # weights, count, stream
+    "tmt_prolong_smooth_ext": ([_P] * 6 + [_I] * 7 + [_P, _I, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,314 @@
+// K1-local (smooth_restrict_ext) and K2-local (prolong_smooth_ext, with or
+// without the owned resnorm): the two kernels of a level visit on a
+// ghost-extended block, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels tpu_multigrid/kernels/local.py::_k1_local
+// and ::_k2_local.
+//
+// The block is an (R, C) = (lr + 2*GR, lc + 2*GC) array, GR = 16 ghost rows
+// and GC = 256 ghost columns a side, whose cell (i, j) has the global
+// coordinates (o0 + i, o1 + j); the masks and the RB-GS colours are those of
+// the global coordinates (ExtGeom, window.cuh), so one launch serves a shard
+// at any position of a decomposed grid, and the periodic fused tier
+// (cycles/periodic_fused.py) passes origin (2, 2) and a virtual n so large
+// that every cell is a live unknown.  The coarse block is (R/2 + GR,
+// C/2 + GC): fine cell (i, j), both even, restricts to coarse cell
+// (i/2 + GR/2, j/2 + GC/2), and fine cell (i, j) prolongs from the coarse
+// cells around (i/2 + GR/2, j/2 + GC/2).
+//
+//   K1: `steps` Jacobi (per-step weights) or red-black Gauss-Seidel steps
+//       on u, then r = b - A u, then the full-weighting aggregate of r at
+//       the even cells, masked to the coarse interior (global coordinates
+//       (o0 + i)/2, (o1 + j)/2 floored, in 1..n/2-1).  Writes u' (R, C) and
+//       the coarse block, zero outside the rows and columns the fine block
+//       restricts to.
+//   K2: u <- where(live, u + P ec, 0), then `steps` smoothing steps.  Writes
+//       u'; the resnorm variant also writes one partial sum of (b - A u')^2
+//       over the owned live cells (rows GR..R-GR-1, columns GC..C-GC-1) per
+//       block, which a one-block kernel adds up in a fixed order.
+//
+// Every output is defined on the whole array: cells outside the array read
+// as zero and are never updated, as in the plain versions, so the kernels
+// match them bitwise everywhere, ghosts included.  (The TPU kernels wrap
+// their windows around and leave the ghost ring undefined; the two agree on
+// the owned region, which is all a caller reads after refreshing ghosts.)
+//
+// What bounds them: device-memory traffic, as for K1/K2 (transfer.cu): u
+// and b read and u' written, plus the quarter-size coarse block, about 3.3
+// passes of R*C*4 bytes, against 8*steps + 16 flops per cell.
+//
+// What the design does about it: transfer.cu's.  One block per 64x64 fine
+// tile at an even array origin loads the tile plus a halo of steps + 2 rings
+// (K1) or steps + 1 (K2) into shared memory, runs every step there and
+// writes only the outputs.
+//
+// Arithmetic: the TPU kernels' operations in their order (kernels/
+// local.py, transfer.py::_fw_aggregate and ::_bilinear_prolong), built with
+// -fmad=false: the aggregate is 0.25 * ((row3[j-1] + 2 row3[j]) + row3[j+1])
+// with row3 = (r[i-1] + 2 r[i]) + r[i+1], and the odd-odd prolongation is
+// 0.5 * (0.5 * (c + c_down) + 0.5 * (c_right + c_down_right)).
+
+#include "levelvisit.cuh"
+#include "window.cuh"
+
+namespace {
+
+constexpr int kGR = 16;   // ghost rows per side
+constexpr int kGC = 256;  // ghost columns per side
+
+__device__ __forceinline__ int floor_half(int x) {
+  return x >= 0 ? x / 2 : -((1 - x) / 2);
+}
+
+// The full-weighting aggregate at window index k, in _fw_aggregate's order.
+__device__ __forceinline__ float fw_aggregate(const float* r, int k, int w) {
+  auto row3 = [&](int c) {
+    return (r[c - w] + 2.0f * r[c]) + r[c + w];
+  };
+  return 0.25f * ((row3(k - 1) + 2.0f * row3(k)) + row3(k + 1));
+}
+
+// Bilinear prolongation of the coarse block ec (Cc columns) at fine cell
+// (i, j) >= 0, in _bilinear_prolong's order: 2x2 replication, then the
+// average with the next row, then with the next column (the averages of a
+// value with itself are exact and left out).
+__device__ __forceinline__ float prolong_ext(const float* __restrict__ ec,
+                                             int Cc, int i, int j) {
+  const int I = (i >> 1) + kGR / 2;
+  const int J = (j >> 1) + kGC / 2;
+  auto c = [&](int a, int bb) { return __ldg(ec + (size_t)a * Cc + bb); };
+  const bool odd_i = i & 1;
+  const bool odd_j = j & 1;
+  if (!odd_i && !odd_j) return c(I, J);
+  if (odd_i && !odd_j) return 0.5f * (c(I, J) + c(I + 1, J));
+  if (!odd_i && odd_j) return 0.5f * (c(I, J) + c(I, J + 1));
+  return 0.5f * (0.5f * (c(I, J) + c(I + 1, J)) +
+                 0.5f * (c(I, J + 1) + c(I + 1, J + 1)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+smooth_restrict_ext_kernel(const float* __restrict__ u,
+                           const float* __restrict__ b,
+                           float* __restrict__ u_out, float* __restrict__ rc,
+                           ExtGeom g, int steps, int rbgs, Weights wt) {
+  extern __shared__ float smem[];
+  const int halo = steps + 2;
+  const int w = kTile + 2 * halo;
+  const int ro = blockIdx.y * kTile;
+  const int co = blockIdx.x * kTile;
+  const int r0 = ro - halo;
+  const int c0 = co - halo;
+  const int Cc = g.C / 2 + kGC;
+  const int nc = g.n / 2;
+  const int fo0 = floor_half(g.o0);
+  const int fo1 = floor_half(g.o1);
+  float* buf_a = smem;
+  float* buf_b = smem + w * w;
+  float* bw = smem + 2 * w * w;
+  load_window(buf_a, u, g, r0, c0, w);
+  load_window(bw, b, g, r0, c0, w);
+  __syncthreads();
+
+  float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, g, steps, 0, rbgs,
+                           wt);
+  float* r = (v == buf_a) ? buf_b : buf_a;
+
+  for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
+    const int gi = ro + ti;
+    for (int tj = threadIdx.x; tj < kTile; tj += blockDim.x) {
+      const int gj = co + tj;
+      if (g.in_array(gi, gj)) {
+        u_out[g.at(gi, gj)] = v[(ti + halo) * w + tj + halo];
+      }
+    }
+  }
+
+  // Residual on the tile plus one ring: what the restriction reads.
+  for (int li = halo - 1 + threadIdx.y; li <= halo + kTile; li += blockDim.y) {
+    const int gi = r0 + li;
+    for (int lj = halo - 1 + threadIdx.x; lj <= halo + kTile;
+         lj += blockDim.x) {
+      const int gj = c0 + lj;
+      const int k = li * w + lj;
+      r[k] = g.live(gi, gj) ? residual_at(v, bw, k, w) : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // The aggregate at the tile's even cells, into the coarse block.
+  const int ct = kTile / 2;
+  for (int ci = threadIdx.y; ci < ct; ci += blockDim.y) {
+    const int gi = ro + 2 * ci;
+    for (int cj = threadIdx.x; cj < ct; cj += blockDim.x) {
+      const int gj = co + 2 * cj;
+      if (!g.in_array(gi, gj)) continue;
+      const int hi = gi / 2 + fo0;
+      const int hj = gj / 2 + fo1;
+      float val = 0.0f;
+      if (is_interior(hi, hj, nc)) {
+        val = fw_aggregate(r, (2 * ci + halo) * w + 2 * cj + halo, w);
+      }
+      rc[(size_t)(gi / 2 + kGR / 2) * Cc + gj / 2 + kGC / 2] = val;
+    }
+  }
+}
+
+// Zeroes the cells of the (Rc, Cc) coarse block that no fine cell restricts
+// to: the GR/2 rows above and below the restricted rows, and the GC/2
+// columns left and right of the restricted columns.  One thread per cell.
+__global__ void __launch_bounds__(kThreads)
+zero_frame_kernel(float* __restrict__ rc, int Rc, int Cc) {
+  const int edge_rows = kGR / 2;
+  const int edge_cols = kGC / 2;
+  const long long band = 2LL * edge_rows * Cc;
+  const long long total = band + (long long)(Rc - 2 * edge_rows) * 2 *
+                                     edge_cols;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  int i, j;
+  if (t < band) {
+    const int row = static_cast<int>(t / Cc);
+    i = row < edge_rows ? row : Rc - 2 * edge_rows + row;
+    j = static_cast<int>(t % Cc);
+  } else {
+    const long long q = t - band;
+    const int col = static_cast<int>(q % (2 * edge_cols));
+    i = edge_rows + static_cast<int>(q / (2 * edge_cols));
+    j = col < edge_cols ? col : Cc - 2 * edge_cols + col;
+  }
+  rc[(size_t)i * Cc + j] = 0.0f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+prolong_smooth_ext_kernel(const float* __restrict__ u,
+                          const float* __restrict__ b,
+                          const float* __restrict__ ec,
+                          float* __restrict__ u_out,
+                          float* __restrict__ partials, ExtGeom g, int steps,
+                          int rbgs, Weights wt) {
+  extern __shared__ float smem[];
+  const int halo = steps + 1;
+  const int w = kTile + 2 * halo;
+  const int ro = blockIdx.y * kTile;
+  const int co = blockIdx.x * kTile;
+  const int r0 = ro - halo;
+  const int c0 = co - halo;
+  const int Cc = g.C / 2 + kGC;
+  float* buf_a = smem;
+  float* buf_b = smem + w * w;
+  float* bw = smem + 2 * w * w;
+
+  for (int li = threadIdx.y; li < w; li += blockDim.y) {
+    const int gi = r0 + li;
+    for (int lj = threadIdx.x; lj < w; lj += blockDim.x) {
+      const int gj = c0 + lj;
+      const int k = li * w + lj;
+      buf_a[k] = g.live(gi, gj)
+                     ? u[g.at(gi, gj)] + prolong_ext(ec, Cc, gi, gj)
+                     : 0.0f;
+      bw[k] = g.in_array(gi, gj) ? b[g.at(gi, gj)] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, g, steps, 0, rbgs,
+                           wt);
+
+  float acc = 0.0f;
+  for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
+    const int gi = ro + ti;
+    for (int tj = threadIdx.x; tj < kTile; tj += blockDim.x) {
+      const int gj = co + tj;
+      if (!g.in_array(gi, gj)) continue;
+      const int k = (ti + halo) * w + tj + halo;
+      u_out[g.at(gi, gj)] = v[k];
+      const bool owned = gi >= kGR && gi < g.R - kGR && gj >= kGC &&
+                         gj < g.C - kGC;
+      if (partials != nullptr && owned && g.live(gi, gj)) {
+        const float rr = residual_at(v, bw, k, w);
+        acc += rr * rr;
+      }
+    }
+  }
+  if (partials != nullptr) {
+    float* red = (v == buf_a) ? buf_b : buf_a;
+    const float total = block_sum(acc, red);
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
+    }
+  }
+}
+
+dim3 tile_grid(int R, int C) {
+  return dim3((C + kTile - 1) / kTile, (R + kTile - 1) / kTile);
+}
+
+}  // namespace
+
+extern "C" {
+
+// u, b, u_out: (R, C); rc: (R/2 + GR, C/2 + GC).  weights: host array
+// [c1[0..count), c2[0..count)], ignored for RB-GS.
+int tmt_smooth_restrict_ext(const void* u, const void* b, void* u_out,
+                            void* rc, int R, int C, int o0, int o1, int n,
+                            int steps, int rbgs, const void* weights,
+                            int count, void* stream) {
+  static int configured[kMaxDevices] = {};
+  if (R % 2 || C % 2) return cudaErrorInvalidValue;
+  Weights wt;
+  cudaError_t err =
+      make_weights(static_cast<const float*>(weights), count, &wt);
+  if (err != cudaSuccess) return err;
+  const int bytes = window_bytes(steps + 2);
+  err = allow_smem(smooth_restrict_ext_kernel, bytes, configured);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ExtGeom g{R, C, o0, o1, n};
+  smooth_restrict_ext_kernel<<<tile_grid(R, C), dim3(kThreadsX, kThreadsY),
+                               bytes, st>>>(
+      static_cast<const float*>(u), static_cast<const float*>(b),
+      static_cast<float*>(u_out), static_cast<float*>(rc), g, steps, rbgs,
+      wt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int Rc = R / 2 + kGR;
+  const int Cc = C / 2 + kGC;
+  const long long frame = 2LL * (kGR / 2) * Cc + (long long)R / 2 * kGC;
+  zero_frame_kernel<<<static_cast<unsigned>((frame + kThreads - 1) /
+                                            kThreads),
+                      kThreads, 0, st>>>(static_cast<float*>(rc), Rc, Cc);
+  return cudaGetLastError();
+}
+
+// ec: (R/2 + GR, C/2 + GC).  partials: one float per 64x64 tile of (R, C),
+// or null for no resnorm; then out_sum[0] receives the sum of (b - A u')^2
+// over the owned live cells.
+int tmt_prolong_smooth_ext(const void* u, const void* b, const void* ec,
+                           void* u_out, void* partials, void* out_sum, int R,
+                           int C, int o0, int o1, int n, int steps, int rbgs,
+                           const void* weights, int count, void* stream) {
+  static int configured[kMaxDevices] = {};
+  if (R % 2 || C % 2) return cudaErrorInvalidValue;
+  Weights wt;
+  cudaError_t err =
+      make_weights(static_cast<const float*>(weights), count, &wt);
+  if (err != cudaSuccess) return err;
+  const int bytes = window_bytes(steps + 1);
+  err = allow_smem(prolong_smooth_ext_kernel, bytes, configured);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = tile_grid(R, C);
+  const ExtGeom g{R, C, o0, o1, n};
+  prolong_smooth_ext_kernel<<<grid, dim3(kThreadsX, kThreadsY), bytes, st>>>(
+      static_cast<const float*>(u), static_cast<const float*>(b),
+      static_cast<const float*>(ec), static_cast<float*>(u_out),
+      static_cast<float*>(partials), g, steps, rbgs, wt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partials == nullptr) return err;
+  sum_partials_kernel<<<1, dim3(kThreadsX, kThreadsY), 0, st>>>(
+      static_cast<const float*>(partials), grid.x * grid.y,
+      static_cast<float*>(out_sum));
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -9,6 +9,12 @@
 // versions (tpu_multigrid_torch/core/ops.py), built with -fmad=false so that
 // nothing is contracted into an FMA.  Cells outside the array read as zero;
 // the interior mask is taken from global indices, as in the plain versions.
+//
+// The loader and the step loop are templates on a geometry policy, which
+// says where the array ends, which cells are live unknowns and which colour
+// a cell has: SquareGeom is the padded (S, S) Dirichlet level, ExtGeom a
+// ghost-extended (R, C) block whose masks are offset by its global origin
+// (local.cu).
 
 #pragma once
 
@@ -38,6 +44,48 @@ __device__ __forceinline__ bool is_interior(int i, int j, int n) {
   return i >= 1 && i <= n - 1 && j >= 1 && j <= n - 1;
 }
 
+// The (S x S) padded Dirichlet level: unknowns at the interior 1..n-1.
+struct SquareGeom {
+  int S;
+  int n;
+  __device__ __forceinline__ bool in_array(int i, int j) const {
+    return i >= 0 && i < S && j >= 0 && j < S;
+  }
+  __device__ __forceinline__ size_t at(int i, int j) const {
+    return (size_t)i * S + j;
+  }
+  __device__ __forceinline__ bool live(int i, int j) const {
+    return is_interior(i, j, n);
+  }
+  __device__ __forceinline__ int color(int i, int j) const {
+    return (i + j) & 1;
+  }
+};
+
+// A ghost-extended (R x C) block whose cell (i, j) has the global
+// coordinates (o0 + i, o1 + j): the live unknowns are the cells of the
+// array whose global coordinates lie in 1..n-1, and a cell's colour is the
+// parity of its global coordinates.
+struct ExtGeom {
+  int R;
+  int C;
+  int o0;
+  int o1;
+  int n;
+  __device__ __forceinline__ bool in_array(int i, int j) const {
+    return i >= 0 && i < R && j >= 0 && j < C;
+  }
+  __device__ __forceinline__ size_t at(int i, int j) const {
+    return (size_t)i * C + j;
+  }
+  __device__ __forceinline__ bool live(int i, int j) const {
+    return in_array(i, j) && is_interior(o0 + i, o1 + j, n);
+  }
+  __device__ __forceinline__ int color(int i, int j) const {
+    return (o0 + i + o1 + j) & 1;
+  }
+};
+
 // u[i-1,j] + u[i+1,j] + u[i,j-1] + u[i,j+1], in the plain version's order.
 __device__ __forceinline__ float nbr(const float* v, int k, int w) {
   return ((v[k - w] + v[k + w]) + v[k - 1]) + v[k + 1];
@@ -49,30 +97,37 @@ __device__ __forceinline__ float residual_at(const float* v, const float* bw,
   return (bw[k] - 4.0f * v[k]) + nbr(v, k, w);
 }
 
-// The (w x w) window at global origin (r0, c0); cells outside the array
+// The (w x w) window at array origin (r0, c0); cells outside the array
 // read 0.
+template <typename Geom>
 __device__ void load_window(float* dst, const float* __restrict__ src,
-                            int S, int r0, int c0, int w) {
+                            const Geom& g, int r0, int c0, int w) {
   for (int li = threadIdx.y; li < w; li += blockDim.y) {
     const int gi = r0 + li;
     for (int lj = threadIdx.x; lj < w; lj += blockDim.x) {
       const int gj = c0 + lj;
-      dst[li * w + lj] = (gi >= 0 && gi < S && gj >= 0 && gj < S)
-                             ? src[(size_t)gi * S + gj]
-                             : 0.0f;
+      dst[li * w + lj] = g.in_array(gi, gj) ? src[g.at(gi, gj)] : 0.0f;
     }
   }
+}
+
+__device__ void load_window(float* dst, const float* __restrict__ src,
+                            int S, int r0, int c0, int w) {
+  load_window(dst, src, SquareGeom{S, 0}, r0, c0, w);
 }
 
 // Runs `steps` smoothing steps on the window; returns the buffer that holds
 // the result (the other one is free).  `first_step` is the global index of
 // the launch's first step: RB-GS half-step j updates colour j % 2, so a
-// smoothing split over several launches carries its colours on.  The
-// outermost ring has no neighbours and keeps its value: it is invalid after
-// the first step.
+// smoothing split over several launches carries its colours on.  Only the
+// geometry's live cells change (Jacobi zeroes the others).  The outermost
+// ring has no neighbours and keeps its value: it is invalid after the first
+// step.
+template <typename Geom>
 __device__ float* smooth_window(float* v, float* spare, const float* bw,
-                                int w, int r0, int c0, int n, int steps,
-                                int first_step, int rbgs, const Weights& wt) {
+                                int w, int r0, int c0, const Geom& g,
+                                int steps, int first_step, int rbgs,
+                                const Weights& wt) {
   for (int s = 0; s < steps; ++s) {
     if (rbgs) {
       // Half-step j updates colour j % 2 in place; same-colour nodes do not
@@ -83,7 +138,7 @@ __device__ float* smooth_window(float* v, float* spare, const float* bw,
         for (int lj = threadIdx.x + 1; lj < w - 1; lj += blockDim.x) {
           const int gj = c0 + lj;
           const int k = li * w + lj;
-          if (is_interior(gi, gj, n) && ((gi + gj) & 1) == color) {
+          if (g.live(gi, gj) && g.color(gi, gj) == color) {
             v[k] = 0.25f * (bw[k] + nbr(v, k, w));
           }
         }
@@ -98,9 +153,8 @@ __device__ float* smooth_window(float* v, float* spare, const float* bw,
           const int k = li * w + lj;
           float out = v[k];
           if (li > 0 && li < w - 1 && lj > 0 && lj < w - 1) {
-            out = is_interior(gi, gj, n)
-                      ? c1 * v[k] + c2 * (bw[k] + nbr(v, k, w))
-                      : 0.0f;
+            out = g.live(gi, gj) ? c1 * v[k] + c2 * (bw[k] + nbr(v, k, w))
+                                 : 0.0f;
           }
           spare[k] = out;
         }
@@ -112,6 +166,14 @@ __device__ float* smooth_window(float* v, float* spare, const float* bw,
     __syncthreads();
   }
   return v;
+}
+
+// The Dirichlet step loop (the mask needs only n).
+__device__ float* smooth_window(float* v, float* spare, const float* bw,
+                                int w, int r0, int c0, int n, int steps,
+                                int first_step, int rbgs, const Weights& wt) {
+  return smooth_window(v, spare, bw, w, r0, c0, SquareGeom{0, n}, steps,
+                       first_step, rbgs, wt);
 }
 
 // Runs `steps` steps of a pointwise operator `op` on the window, each from

@@ -13,6 +13,10 @@ from .nldiffusion import (QuasilinearDiffusion3DProblem,
                           QuasilinearDiffusionProblem,
                           build_quasilinear_hierarchy,
                           build_quasilinear_hierarchy3)
+from .periodic import (PeriodicOp, PeriodicPoissonProblem,
+                       build_periodic_hierarchy, periodic_coarse_pinv)
+from .periodic3d import (Periodic3DPoissonProblem, PeriodicOp3,
+                         build_periodic3_hierarchy, periodic3_coarse_pinv)
 from .poisson import PoissonProblem, boundary_grid, poisson_rhs
 from .poisson3d import Poisson3DProblem, boundary_grid3, poisson3d_rhs
 from .poisson4_3d import Poisson4_3DProblem, mehrstellen_rhs3
@@ -29,4 +33,7 @@ __all__ = ["PoissonProblem", "DiffusionProblem", "HelmholtzProblem",
            "NonlinearPoissonProblem", "NonlinearPoisson3DProblem",
            "build_pointwise_hierarchy", "build_pointwise_hierarchy3",
            "QuasilinearDiffusionProblem", "QuasilinearDiffusion3DProblem",
-           "build_quasilinear_hierarchy", "build_quasilinear_hierarchy3"]
+           "build_quasilinear_hierarchy", "build_quasilinear_hierarchy3",
+           "PeriodicOp", "PeriodicPoissonProblem", "build_periodic_hierarchy",
+           "periodic_coarse_pinv", "PeriodicOp3", "Periodic3DPoissonProblem",
+           "build_periodic3_hierarchy", "periodic3_coarse_pinv"]
