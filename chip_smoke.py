@@ -102,12 +102,28 @@ Phases, each printing its own lines:
    scipy's sparse direct solve; solve_poisson3d(9, bc="periodic") on the
    plain torus operators, and 3D level 5 in float64 against a direct
    Fourier solve.
+4k. The distributed fused tier (tpu_multigrid_torch.dist): K0-local
+   (Jacobi 2, Chebyshev 2, RB-GS 1, the residual), the ds / ts residual,
+   the exact-pair prolongation and the compensated add (ds pair and ts
+   triple, one and two addends) bitwise against their plain versions over
+   the whole arrays, random ghosts included, at the (1, 1) level-14 finest
+   block (17440, 17920) and a 2 x 2 level-13 shard block, four shard
+   origins each; then, on a one-rank NCCL group (file:// store), each with
+   exact launch counts: the 16385^2 ts refinement (ds_levels 2,
+   benchmarks/bench_dist_refined.py's Jacobi (2, 2)) to 1e-8 with its
+   float64 residual, seconds with set-up, peak memory and ms per iteration
+   (the slope between 2 and 6 iterations); solve_poisson(13, mesh=...,
+   dist_path="pallas") against the single-device kernel V-cycle; the
+   level-13 ts solve on (1, 1) against a 2 x 2 gloo mesh of four spawned
+   ranks sharing the card (strips staged through host memory): the same
+   iterations, histories and iterates.
 5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var, anisotropic,
    FAS Bratu and quasilinear), at 513^3 (3D, 3D var, FAS Bratu) and the
    periodic 8192^2 torus on both paths, one ts iteration at 16385^2 on both
    paths, and each kernel beside its plain version (K1/K2/ds/ts at
    S = 8448, the var, zebra and FAS kernels at 4352, the 3D ones at (528,
-   528, 640), K1-local and K2-local at (8224, 8704), the others at 16640),
+   528, 640), K1-local and K2-local at (8224, 8704), the distributed
+   refinement's at (17440, 17920), the others at 16640),
    with CUDA events (median of 7 after warm-up), and the one PyTorch call
    that computes the same function where there is one.
 
@@ -156,6 +172,7 @@ _Z = "tpu_multigrid/kernels/lines.py"
 _F = "tpu_multigrid/kernels/fas.py"
 _F3 = "tpu_multigrid/kernels/fas3d.py"
 _L = "tpu_multigrid/kernels/local.py"
+_LR = "tpu_multigrid/kernels/localref.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -205,10 +222,17 @@ REPLACES = {
     "smooth_restrict_ext": f"{_L}:216",
     "prolong_smooth_ext": f"{_L}:341",
     "prolong_smooth_ext_resnorm": f"{_L}:341",
+    "smooth_ext": f"{_L}:101",
+    "ds_residual_ext": f"{_LR}:74",
+    "ts_residual_ext": f"{_LR}:74",
+    "prolong_pair_ext": f"{_LR}:183",
+    "comp_add_ext": f"{_LR}:320",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
+                          else "localref.cu" if REPLACES[name].startswith(
+                              _LR)
                           else "local.cu" if REPLACES[name].startswith(_L)
                           else "fas3d.cu" if REPLACES[name].startswith(_F3)
                           else "fas.cu" if REPLACES[name].startswith(_F)
@@ -2749,6 +2773,433 @@ def periodic_times(card, times, work):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 4k. The distributed fused tier (dist/refine_pallas.py, dist/pallas_cycle.py)
+# ---------------------------------------------------------------------------
+
+DIST_LEVEL = 14
+DIST_V_LEVEL = 13
+DIST_TOL = 1e-8
+DIST_DS = 2
+# (R, C, n) of the extended blocks the kernels are held at: the finest block
+# of the (1, 1) level-14 solve, and a 2 x 2 shard of the level-13 one.
+DIST_BLOCKS = [(17408 + 32, 17408 + 512, 16384),
+               (4608 + 32, 4608 + 512, 8192)]
+# Launches per refined iteration of the ts solve with ds_levels 2 over three
+# sharded levels (two on the 2 x 2 mesh at level 13): K1-local at each
+# sharded level, K2-local at the last, and per ds level one K0-local, one
+# ds residual, one exact-pair prolongation and two compensated adds; then
+# one add into the triple and its ts residual.
+DIST_PER_ITER = {3: dict(smooth_restrict_ext=3, prolong_smooth_ext=1,
+                         smooth_ext=2, ds_residual_ext=2, prolong_pair_ext=2,
+                         comp_add_ext=5, ts_residual_ext=1),
+                 2: dict(smooth_restrict_ext=2, smooth_ext=2,
+                         ds_residual_ext=2, prolong_pair_ext=2,
+                         comp_add_ext=5, ts_residual_ext=1)}
+
+
+def dist_origins(R, C):
+    lr, lc = R - 32, C - 512
+    return [(-16, -256), (lr - 16, -256), (-16, lc - 256),
+            (lr - 16, lc - 256)]
+
+
+def dist_cases(u, b, um, ul, ech, ecl, origin, n):
+    """{entry: [(kernel call, plain call), ...]} of the four kernels'
+    entries on the path (and residual_ext, K0-local's other entry)."""
+    from tpu_multigrid_torch.core import ops
+    from tpu_multigrid_torch.kernels import local as KL
+    from tpu_multigrid_torch.kernels import localref as KR
+    smooth = [("jacobi", 2.0 / 3.0, 2),
+              ("jacobi", ops.chebyshev_omegas(2, 0.4), 2),
+              ("rbgs", 1.0, 1)]
+    return {
+        "smooth_ext": [
+            (lambda a=a: KL.smooth_ext(u, b, origin, n, a[2], a[0], a[1]),
+             lambda a=a: KL.smooth_ext_plain(u, b, origin, n, a[2], a[0],
+                                             a[1])) for a in smooth],
+        "residual_ext": [(lambda: KL.residual_ext(u, b, origin, n),
+                          lambda: KL.residual_ext_plain(u, b, origin, n))],
+        "ds_residual_ext": [
+            (lambda: KR.ds_residual_ext(b, u, um, origin, n),
+             lambda: KR.ds_residual_ext_plain(b, u, um, origin, n))],
+        "ts_residual_ext": [
+            (lambda: KR.ts_residual_ext(b, u, um, ul, origin, n),
+             lambda: KR.ts_residual_ext_plain(b, u, um, ul, origin, n))],
+        "prolong_pair_ext": [
+            (lambda: KR.prolong_pair_ext(ech, ecl, origin, n),
+             lambda: KR.prolong_pair_ext_plain(ech, ecl, origin, n))]}
+
+
+def comp_add_case(k, m, u, b, um, ul):
+    """(kernel call, plain call) of comp_add_ext on fresh copies."""
+    from tpu_multigrid_torch.kernels import localref as KR
+    comps = [u, um, ul][:k]
+    ys = [b, um][:m]
+    return (lambda: KR.comp_add_ext([c.clone() for c in comps], ys),
+            lambda: KR.comp_add_ext_plain([c.clone() for c in comps], ys))
+
+
+def phase_dist_kernels(errs):
+    """The four kernels of the distributed refinement bitwise against their
+    plain versions over the whole arrays, random ghosts included: at the
+    (1, 1) level-14 finest block and a 2 x 2 level-13 shard block, at the
+    four shard origins each; K0-local with Jacobi 2, Chebyshev 2, RB-GS 1
+    and the residual; comp_add_ext for the ds pair and ts triple with one
+    and two addends."""
+    from tpu_multigrid_torch.kernels import local as KL
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(41)
+    for R, C, n in DIST_BLOCKS:
+        u, b = (torch.randn((R, C), generator=gen, device=DEVICE)
+                for _ in range(2))
+        um = 1e-8 * torch.randn((R, C), generator=gen, device=DEVICE)
+        ul = 1e-15 * torch.randn((R, C), generator=gen, device=DEVICE)
+        ech = torch.randn(KL.coarse_shape(R, C), generator=gen,
+                          device=DEVICE)
+        ecl = 1e-8 * torch.randn(KL.coarse_shape(R, C), generator=gen,
+                                 device=DEVICE)
+        for origin in dist_origins(R, C):
+            for entry, pairs in dist_cases(u, b, um, ul, ech, ecl, origin,
+                                           n).items():
+                for kern, plain in pairs:
+                    got, want = kern(), plain()
+                    for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                                      for x in (got, want))):
+                        track(errs, entry, g, w)
+                    del got, want
+        for k in (2, 3):
+            for m in (1, 2):
+                kern, plain = comp_add_case(k, m, u, b, um, ul)
+                for g, w in zip(kern(), plain()):
+                    track(errs, "comp_add_ext", g, w)
+        print(f"[dist-kernels] ({R}, {C}) -> {KL.coarse_shape(R, C)}, n={n}"
+              f", origins {dist_origins(R, C)}: smooth_ext (Jacobi 2, "
+              f"Chebyshev 2, RB-GS 1), residual_ext, ds/ts_residual_ext, "
+              f"prolong_pair_ext, comp_add_ext (k, m) in {{2, 3}} x {{1, 2}}"
+              f": bitwise equal over the whole arrays")
+        del u, b, um, ul, ech, ecl
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def dist_config(level):
+    """benchmarks/bench_dist_refined.py's configuration: Jacobi (2, 2),
+    coarsest level 5."""
+    import tpu_multigrid_torch as tmg
+    return tmg.MultigridConfig(finest_level=level, coarsest_level=5)
+
+
+def dist_gathered_rhs(mesh, levels):
+    from tpu_multigrid_torch.dist import pallas_cycle as PC
+    n0, S0 = levels.sizes[0]
+    my, mx = mesh.shape
+    b = PC.rhs_ext(mesh, n0, S0 // my, S0 // mx, 4.0, torch.float32)
+    return PC.gather_owned(mesh, b)
+
+
+def dist_ts_solve(mesh, level, **kw):
+    from tpu_multigrid_torch import dist
+    return dist.refined_sharded_solve_pallas(
+        dist_config(level), mesh, tol=DIST_TOL, max_iters=30, ts=True,
+        ds_levels=DIST_DS, **kw)
+
+
+def dist_rank_program(mesh, level):
+    """A rank of the 2 x 2 mesh: the ts solve at ``level`` with its launch
+    counts and seconds; rank 0 also returns the gathered leading
+    component."""
+    from tpu_multigrid_torch import dist, kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, levels = dist_ts_solve(mesh, level)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    u = dist.gather_full(mesh, res.u.contiguous()).cpu()
+    return dict(hist=res.res_history, iterations=res.iterations,
+                converged=res.converged, counts=counts, seconds=secs,
+                sizes=levels.sizes, num_sharded=levels.num_sharded,
+                u=u if mesh.rank == 0 else None)
+
+
+def dist_ratios(h, it):
+    h = np.asarray(h)[:it + 1]
+    return h[1:] / h[0]
+
+
+def phase_dist_slice(card, record):
+    """The distributed fused tier on a one-rank NCCL group at full width,
+    and on a 2 x 2 gloo mesh sharing the card; each path with launch counts
+    set to 0 just before it and checked exactly after."""
+    import os
+    import tempfile
+    import torch.distributed as tdist
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import dist
+    from tpu_multigrid_torch.cycles import cycle_with_norm
+    from tpu_multigrid_torch.dist import pallas_cycle as PC
+    summary = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    tdist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "store"), world_size=1, rank=0)
+    try:
+        mesh = dist.make_grid_mesh((1, 1))
+        print(f"[dist] one-rank {mesh.backend} group, mesh {mesh.shape} on "
+              f"{mesh.device}")
+        # 1. The 16385^2 ts solve, from set-up to the end of the solve.
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, levels = drive("dist-ts-14", lambda: dist_ts_solve(
+            mesh, DIST_LEVEL))
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        it = res.iterations
+        b = dist_gathered_rhs(mesh, levels)
+        comps = [dist.gather_full(mesh, c) for c in res.components]
+        rel = f64_rel_residual(b, comps, 2 ** DIST_LEVEL)
+        del b, comps
+        hist = res.res_history[:it + 1]
+        print(f"[dist] refined_sharded_solve_pallas at {2 ** DIST_LEVEL + 1}"
+              f"^2, (1, 1) mesh, ts, ds_levels {DIST_DS}, levels "
+              f"{levels.sizes[:4]}... ({levels.num_sharded} sharded): "
+              f"converged={res.converged} iterations={it} history=["
+              f"{', '.join(f'{float(x):.4e}' for x in hist)}]; seconds (one "
+              f"call, set-up included) {secs:.3f}, max_memory_allocated "
+              f"{peak / 2 ** 30:.2f} GiB, f64 relative residual of u_hi + "
+              f"u_mid + u_lo {rel:.3e}  ({card})")
+        check(res.converged, f"dist-ts-14: not converged in {it}")
+        check(rel <= 2e-8, f"dist-ts-14: f64 relative residual {rel}")
+        check(levels.num_sharded == 3, f"dist-ts-14: {levels}")
+        want = expect(**{k: v * it for k, v in DIST_PER_ITER[3].items()})
+        got = PATH_COUNTS["dist-ts-14"]
+        check(got == want, f"dist-ts-14 launches {nonzero(got)}, expected "
+                           f"{nonzero(want)}")
+        print(f"[dist] launches over {it} iterations: {nonzero(got)}")
+        del res
+        torch.cuda.empty_cache()
+        # Its time per iteration: the slope between 2 and 6 iterations,
+        # after a warm-up call, on a prebuilt hierarchy.
+        pre = PC.build_pallas_poisson(dist_config(DIST_LEVEL), (1, 1),
+                                      replicate_below=256,
+                                      device=mesh.device)
+        walls = {}
+        for iters in (1, 2, 6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.refined_sharded_solve_pallas(
+                dist_config(DIST_LEVEL), mesh, num_cycles=iters, ts=True,
+                ds_levels=DIST_DS, prebuilt=pre)
+            torch.cuda.synchronize()
+            walls[iters] = time.perf_counter() - t0
+        per_ms = (walls[6] - walls[2]) / 4 * 1e3
+        torch.cuda.empty_cache()
+        print(f"[dist] ms per refined iteration (slope 2 -> 6 iterations): "
+              f"{per_ms:.3f}; beside it the single-device record "
+              f"(solve_refined_ts, ds_levels 3, Chebyshev (3, 2), another "
+              f"route): {record['iterations']} iterations, "
+              f"{record['seconds']:.3f} s with set-up  ({card})")
+        summary["ts14"] = dict(iterations=it, seconds=secs,
+                               peak_gib=peak / 2 ** 30, f64_rel_residual=rel,
+                               ms_per_iteration=per_ms)
+
+        # 2. The fused V-cycle at 8193^2 against the single-device kernel
+        # V-cycle.
+        cfg = record_config(True, DIST_V_LEVEL)
+        rd = drive("dist-v-13", lambda: tmg.solve_poisson(
+            DIST_V_LEVEL, config=cfg, mesh=mesh, dist_path="pallas",
+            refined=False, num_cycles=3))
+        want = expect(smooth_restrict_ext=9, prolong_smooth_ext=6,
+                      prolong_smooth_ext_resnorm=3)
+        got = PATH_COUNTS["dist-v-13"]
+        check(got == want, f"dist-v-13 launches {nonzero(got)}, expected "
+                           f"{nonzero(want)}")
+        # After 3 cycles the iterate sits at the f32 floor of this
+        # h^2-scaled right-hand side (0.2 of r0 at level 13, as the torus
+        # phase shows), where two f32 routes part by ~2e-4 of max|u|: held
+        # to 1e-3; the one-cycle iterates, above the floor, to 1e-5.
+        n = 2 ** DIST_V_LEVEL
+        phys = (slice(0, n + 1), slice(0, n + 1))
+        du = {}
+        for cycles in (1, 3):
+            r_s = tmg.solve_poisson(DIST_V_LEVEL, config=cfg, refined=False,
+                                    num_cycles=cycles, device=DEVICE)
+            if cycles == 3:
+                rs = r_s
+                ud = dist.gather_full(mesh, rd.u)
+            else:
+                ud = dist.gather_full(mesh, tmg.solve_poisson(
+                    DIST_V_LEVEL, config=cfg, mesh=mesh, dist_path="pallas",
+                    refined=False, num_cycles=1).u)
+            us = r_s.u[phys]
+            du[cycles] = float((ud[phys] - us).abs().max() / us.abs().max())
+            del ud, us, r_s
+        dh = float(np.max(np.abs(np.asarray(rd.res_history)
+                                 / np.asarray(rs.res_history) - 1)))
+        levels, hier = PC.build_pallas_poisson(cfg, (1, 1),
+                                               device=mesh.device)
+        n0, S0 = levels.sizes[0]
+        be = PC.rhs_ext(mesh, n0, S0, S0, 4.0, torch.float32)
+        ue = torch.zeros_like(be)
+        def vcycle():
+            return PC._vcycle_pallas(mesh, levels, hier, cfg, 0, ue, be,
+                                     want_norm=True)
+        ms_d = cuda_ms(vcycle)
+        # The host's time to issue it (the cycle syncs with the host only
+        # for its norm), and the replicated plain levels alone.
+        issue = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vcycle()
+            issue.append((time.perf_counter() - t0) * 1e3)
+        issue_ms = statistics.median(issue)
+        ns = levels.num_sharded
+        rc = torch.randn((levels.sizes[ns][1],) * 2, generator=torch.Generator(
+            device=DEVICE).manual_seed(44), device=DEVICE)
+        tail_ms = cuda_ms(lambda: PC._replicated_cycle(
+            hier, cfg, ns, torch.zeros_like(rc), rc))
+        prob = tmg.PoissonProblem(cfg, device=DEVICE, align=256,
+                                  min_pad_level=0)
+        bs = prob.rhs()
+        us0 = torch.zeros_like(bs)
+        ms_s = cuda_ms(lambda: cycle_with_norm(prob.hierarchy, cfg, us0, bs))
+        print(f"[dist] V-cycle with its norm at {n + 1}^2, Chebyshev (3, 2):"
+              f" fused tier on (1, 1) {ms_d:.3f} ms ({levels.num_sharded} "
+              f"sharded levels; host issue {issue_ms:.3f} ms; its replicated "
+              f"plain levels from {levels.sizes[ns][1]}^2 alone "
+              f"{tail_ms:.3f} ms), single-device kernels {ms_s:.3f} ms; max "
+              f"|u_dist - u_single| / max|u_single| after 1 cycle "
+              f"{du[1]:.3e}, after 3 {du[3]:.3e}; history rel diff "
+              f"{dh:.3e}  ({card})")
+        check(du[1] <= 1e-5 and du[3] <= 1e-3, f"dist-v-13 against the "
+              f"single-device V-cycle: du {du}")
+        summary["v13"] = dict(ms_dist=ms_d, ms_single=ms_s, du_1=du[1],
+                              du_3=du[3], issue_ms=issue_ms, tail_ms=tail_ms)
+        del rd, rs, be, ue, prob, bs, us0, hier, rc
+        torch.cuda.empty_cache()
+
+        # 3. The 2 x 2 mesh on the one card (gloo, strips staged through
+        # host memory) against the (1, 1) NCCL run at level 13.
+        r1, lv1 = drive("dist-ts-13", lambda: dist_ts_solve(
+            mesh, DIST_V_LEVEL))
+        it1 = r1.iterations
+        want = expect(**{k: v * it1 for k, v in DIST_PER_ITER[3].items()})
+        check(PATH_COUNTS["dist-ts-13"] == want,
+              f"dist-ts-13 launches {nonzero(PATH_COUNTS['dist-ts-13'])}")
+        u1 = dist.gather_full(mesh, r1.u).cpu()
+        h1 = np.asarray(r1.res_history)
+        del r1
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = dist.run_on_mesh(dist_rank_program, (2, 2), backend="gloo",
+                               device=DEVICE + ":0", args=(DIST_V_LEVEL,))
+        wall = time.perf_counter() - t0
+        o = out[0]
+        it4 = o["iterations"]
+        total = {k: sum(r["counts"][k] for r in out) for k in o["counts"]}
+        PATH_COUNTS["dist-ts-13-2x2"] = total
+        want = expect(**{k: v * it4 * 4 for k, v in
+                         DIST_PER_ITER[2].items()})
+        check(o["num_sharded"] == 2 and total == want,
+              f"dist-ts-13-2x2: {o['num_sharded']} sharded, launches "
+              f"{nonzero(total)}, expected {nonzero(want)}")
+        for r in out[1:]:
+            check(r["iterations"] == it4 and torch.equal(
+                r["hist"][:it4 + 1], o["hist"][:it4 + 1]),
+                "dist-ts-13-2x2: the ranks disagree")
+        check(o["converged"] and it4 == it1, f"dist-ts-13-2x2: {it4} "
+              f"iterations against {it1}")
+        ua, ub = o["u"][phys].numpy(), u1[phys].numpy()
+        close = np.allclose(ua, ub, rtol=1e-4, atol=1e-8)
+        rat = float(np.max(np.abs(dist_ratios(o["hist"], it4)
+                                  / dist_ratios(h1, it1) - 1)))
+        print(f"[dist] 2 x 2 gloo mesh on one card at {n + 1}^2 (levels "
+              f"{o['sizes'][:3]}..., 2 sharded): converged={o['converged']}"
+              f" in {it4} iterations (the (1, 1) NCCL run: {it1}); history "
+              f"ratios rel diff {rat:.3e}; u within rtol 1e-4 / atol 1e-8 "
+              f"of the (1, 1) run: {close} (max |du| "
+              f"{float(np.abs(ua - ub).max()):.3e}); seconds per rank "
+              f"{[round(r['seconds'], 3) for r in out]}, {wall:.3f} s with "
+              f"the ranks' start (not a multi-card time: the ranks share "
+              f"one card and stage every strip through host memory)  "
+              f"({card})")
+        check(rat <= 2e-2 and close, "dist-ts-13-2x2 against the (1, 1) "
+              f"run: history ratios {rat}, u close {close}")
+        summary["ts13_2x2"] = dict(iterations=it4, iterations_1x1=it1,
+                                   ratio_rel_diff=rat, seconds=o["seconds"])
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def dist_cells(R, C, origin, n):
+    """(cells, live, reach, coarse reach) of an extended block: the live
+    cells (global 1..n-1), the cells their stencils read (0..n), and the
+    coarse cells the prolongation of the live cells reads."""
+    def span(o, size, lo, hi):
+        return max(0, min(o + size - 1, hi) - max(o, lo) + 1)
+    live = span(origin[0], R, 1, n - 1) * span(origin[1], C, 1, n - 1)
+    reach = span(origin[0], R, 0, n) * span(origin[1], C, 0, n)
+    creach = (span(origin[0], R, 0, n) // 2 + 1) * (
+        span(origin[1], C, 0, n) // 2 + 1)
+    return R * C, live, reach, creach
+
+
+# Float32 operations per element of the compensated adds, counted from
+# localref.cu: ds_add 10 (a TwoSum, an add, a quick TwoSum), ts_add 28.
+DS_ADD, TS_ADD = 10, 28
+
+
+def dist_work(R, C, origin, n, steps):
+    """(bytes, operations) of the entries at an (R, C) block: each input
+    read once over what the function needs (u over the reach, b over the
+    live cells, every component of the compensated adds in full), each
+    output written once in full."""
+    cells, live, reach, creach = dist_cells(R, C, origin, n)
+    return {
+        "smooth_ext": (4 * (reach + live + cells), steps * JAC * live),
+        "ds_residual_ext": (4 * (live + 2 * reach + cells), DS * live),
+        "ts_residual_ext": (4 * (live + 3 * reach + cells), TS * live),
+        "prolong_pair_ext": (4 * (2 * creach + 2 * cells),
+                             (PRO_COMP + PRO + 1) * live),
+        "comp_add_ext": (4 * (3 + 2 + 3) * cells, 2 * TS_ADD * cells)}
+
+
+def dist_times(card, times, work):
+    """Each new kernel at the (1, 1) level-14 finest block beside its plain
+    version: Jacobi 2 for K0-local, the ts triple with two addends for the
+    compensated add (the iterate's update).  No PyTorch call computes a
+    compensated residual, an exact-pair prolongation or a TwoSum add: no
+    library time."""
+    from tpu_multigrid_torch.kernels import local as KL
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(43)
+    R, C, n = DIST_BLOCKS[0]
+    origin = (-16, -256)
+    u, b = (torch.randn((R, C), generator=gen, device=DEVICE)
+            for _ in range(2))
+    um = 1e-8 * torch.randn((R, C), generator=gen, device=DEVICE)
+    ul = 1e-15 * torch.randn((R, C), generator=gen, device=DEVICE)
+    ech = torch.randn(KL.coarse_shape(R, C), generator=gen, device=DEVICE)
+    ecl = 1e-8 * ech
+    cases = {k: v[0] for k, v in dist_cases(u, b, um, ul, ech, ecl, origin,
+                                            n).items()
+             if k != "residual_ext"}
+    cases["comp_add_ext"] = comp_add_case(3, 2, u, b, um, ul)
+    work.update(dist_work(R, C, origin, n, 2))
+    for name, (kern, plain) in cases.items():
+        times[name] = (cuda_ms(kern), cuda_ms(plain))
+        k, p = times[name]
+        bms, by = bound(*work[name])
+        print(f"[times] {name:27s} ({R}, {C}): kernel {k:.3f} ms, plain "
+              f"{p:.3f} ms, bound {bms:.3f} ms ({by})  ({card})")
+    del u, b, um, ul, ech, ecl, cases
+    torch.cuda.empty_cache()
+
+
 # Float32 operations per node, counted from the 3D kernels' sources: a
 # Jacobi step of the 7-point stencil (6 adds, 2 multiplies, 1 add), an RB-GS
 # half-step on the half of the nodes it updates (7 each), the residual (8);
@@ -3142,6 +3593,7 @@ def phase_times(card, prob_var, prob_var3, prob_aniso):
     aniso_times(card, prob_aniso, times, work)
     fas_times(card, times, work)
     periodic_times(card, times, work)
+    dist_times(card, times, work)
     return times, work, library
 
 
@@ -3409,6 +3861,8 @@ def main():
     record_fas = phase_fas_slice()
     phase_periodic_kernels(errs)
     record_periodic = phase_periodic_slice()
+    phase_dist_kernels(errs)
+    record_dist = phase_dist_slice(card, record)
     times, work, library = phase_times(card, prob_var, prob_var3, prob_aniso)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
@@ -3420,6 +3874,7 @@ def main():
     print(f"[aniso] summary: {json.dumps(record_aniso)}")
     print(f"[fas] summary: {json.dumps(record_fas)}")
     print(f"[periodic] summary: {json.dumps(record_periodic)}")
+    print(f"[dist] summary: {json.dumps(record_dist)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

@@ -954,3 +954,49 @@ def test_periodic_kernel_route_launches_and_matches_plain_route(gen):
     assert abs(rp.iterations - it) <= 1
     torch.testing.assert_close(rk.res_history[:3], rp.res_history[:3],
                                rtol=3e-3, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The distributed refinement's kernels (kernels/local.py K0-local,
+# kernels/localref.py)
+# ---------------------------------------------------------------------------
+
+def test_dist_refinement_kernels_match_plain_bitwise(gen):
+    """smooth_ext, residual_ext, ds/ts_residual_ext, prolong_pair_ext and
+    comp_add_ext bitwise against their plain versions over the whole
+    arrays, at a 2 x 2 shard block of a 1024^2 grid, its four origins."""
+    from tpu_multigrid_torch.kernels import local, localref
+    R, C, n = 544, 1024, 1000
+    lr, lc = R - 32, C - 512
+    u, b = (torch.randn((R, C), generator=gen, device="cuda")
+            for _ in range(2))
+    um = 1e-8 * torch.randn((R, C), generator=gen, device="cuda")
+    ul = 1e-15 * torch.randn((R, C), generator=gen, device="cuda")
+    ech = torch.randn(local.coarse_shape(R, C), generator=gen, device="cuda")
+    ecl = 1e-8 * torch.randn(local.coarse_shape(R, C), generator=gen,
+                             device="cuda")
+    for origin in [(-16, -256), (lr - 16, -256), (-16, lc - 256),
+                   (lr - 16, lc - 256)]:
+        for sm, om, sw in LOCAL_SMOOTHERS:
+            assert torch.equal(
+                local.smooth_ext(u, b, origin, n, sw, sm, om),
+                local.smooth_ext_plain(u, b, origin, n, sw, sm, om))
+        assert torch.equal(local.residual_ext(u, b, origin, n),
+                           local.residual_ext_plain(u, b, origin, n))
+        assert torch.equal(
+            localref.ds_residual_ext(b, u, um, origin, n),
+            localref.ds_residual_ext_plain(b, u, um, origin, n))
+        assert torch.equal(
+            localref.ts_residual_ext(b, u, um, ul, origin, n),
+            localref.ts_residual_ext_plain(b, u, um, ul, origin, n))
+        for k, p in zip(localref.prolong_pair_ext(ech, ecl, origin, n),
+                        localref.prolong_pair_ext_plain(ech, ecl, origin,
+                                                        n)):
+            assert torch.equal(k, p)
+    for comps in ([u, um], [u, um, ul]):
+        for ys in ([b], [b, um]):
+            got = [c.clone() for c in comps]
+            want = [c.clone() for c in comps]
+            assert localref.comp_add_ext(got, ys)[0] is got[0]
+            localref.comp_add_ext_plain(want, ys)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))

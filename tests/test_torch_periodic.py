@@ -482,7 +482,8 @@ def test_periodic_doors_default_to_the_card():
 def launched(monkeypatch):
     """Calls per K1-local / K2-local entry (one launch each on the card);
     a resnorm call counts under its own name."""
-    counts = dict.fromkeys(KL.LAUNCHES, 0)
+    counts = dict.fromkeys(("smooth_restrict_ext", "prolong_smooth_ext",
+                            "prolong_smooth_ext_resnorm"), 0)
 
     def k1(*a, _fn=KL.smooth_restrict_ext, **kw):
         counts["smooth_restrict_ext"] += 1

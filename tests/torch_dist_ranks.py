@@ -1,0 +1,79 @@
+"""Rank programs of tests/test_torch_dist.py, run by ``dist.run_on_mesh``.
+
+This module imports torch and tpu_multigrid_torch only: the spawned ranks
+import it to find their program, and none of them pays for a JAX import.
+Each program returns CPU tensors and plain values.
+"""
+
+import numpy as np
+import torch
+
+import tpu_multigrid_torch as tmg
+from tpu_multigrid_torch import dist
+from tpu_multigrid_torch.dist import pallas_cycle as PC
+
+# (dr, dc) depths of the ghost refresh under test: full, the lean (8, 128)
+# of Jacobi (2, 2), and an uneven one.
+DEPTHS = [(16, 256), (8, 128), (16, 128)]
+
+# The until-tol solves: from zero to 1e-2, and from FMG to 0.3 (at level 9
+# FMG's start lies within 10x of the float32 floor of this h^2-scaled
+# right-hand side, ~2e-5 of the zero start's residual).
+FMG_CASES = (("until_tol", {"tol": 1e-2}),
+             ("fmg", {"tol": 0.3, "use_fmg": True}))
+
+
+def seeded_blocks(mesh_shape, seed, lr, lc):
+    """The global array of every rank's (lr, lc) extended block, seeded
+    random values everywhere (ghosts included)."""
+    my, mx = mesh_shape
+    R, C = lr + 2 * PC.GR, lc + 2 * PC.GC
+    return np.random.default_rng(seed).standard_normal(
+        (my * R, mx * C)).astype(np.float32)
+
+
+def refresh_program(mesh, seed, n, lr, lc):
+    """This rank's block of :func:`seeded_blocks`, refreshed at each of
+    :data:`DEPTHS`; the gathered owned regions of the full refresh; and
+    this rank's scatter of the array's leading (my lr, mx lc) part."""
+    glob = seeded_blocks(mesh.shape, seed, lr, lc)
+    R, C = lr + 2 * PC.GR, lc + 2 * PC.GC
+    cy, cx = mesh.coords
+    blk = torch.from_numpy(glob[cy * R:(cy + 1) * R, cx * C:(cx + 1) * C])
+    out = {}
+    for dr, dc in DEPTHS:
+        out[(dr, dc)] = PC.refresh_ghosts(mesh, blk.clone(), n, lr, lc, dr,
+                                          dc)
+    out["gather"] = PC.gather_owned(mesh, out[DEPTHS[0]])
+    S = mesh.shape[0] * lr
+    full = torch.from_numpy(glob[:S, :mesh.shape[1] * lc].copy())
+    out["scatter"] = PC.scatter_owned(mesh, full, lr, lc)
+    out["coords"] = mesh.coords
+    return out
+
+
+def _gathered(mesh, block):
+    return dist.gather_full(mesh, block.contiguous())
+
+
+def solve_program(mesh, level):
+    """The level-``level`` solves of the cross-rank tests on ``mesh``."""
+    cfg = tmg.MultigridConfig(finest_level=level, coarsest_level=3)
+    out = {}
+    res, lv = dist.refined_sharded_solve_pallas(
+        cfg, mesh, num_cycles=2, ts=True, ds_levels=2, replicate_below=128)
+    out["refined"] = (res.res_history, _gathered(mesh, res.u), lv.sizes,
+                      lv.num_sharded)
+    door = dict(config=cfg, mesh=mesh, dist_path="pallas", refined=False)
+    res = tmg.solve_poisson(level, num_cycles=4, **door)
+    out["fixed"] = (res.res_history, _gathered(mesh, res.u))
+    for key, kw in FMG_CASES:
+        res = tmg.solve_poisson(level, max_cycles=30, **door, **kw)
+        out[key] = (res.iterations, res.converged, res.res_history)
+    runs = [dist.sharded_solve_pallas(cfg, mesh, num_cycles=3, tol=0.0,
+                                      replicate_below=64, halo=halo)[0]
+            for halo in ("lean", "full")]
+    out["halo"] = [(r.res_history, r.u.clone()) for r in runs]
+    return out
+
+

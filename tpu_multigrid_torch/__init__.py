@@ -24,7 +24,11 @@ nonlinear FAS tier in 2D and 3D (``solve_bratu``,
 K1f_3 and K2f_3 as CUDA kernels; and the periodic torus
 (``bc="periodic"`` of ``solve_poisson`` and ``solve_poisson3d``) with the
 wrap-aware fused tier on K1-local and K2-local, the ghost-extended level-
-visit kernels, as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`).  The
+visit kernels, as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`); and
+the distributed fused tier on ``torch.distributed``
+(:mod:`tpu_multigrid_torch.dist`: ``solve_poisson(mesh=...,
+dist_path="pallas")`` and the one-card 16385^2 refinement path) with K0-local
+and the compensated refinement kernels on ghost-extended blocks.  The
 front doors run on the card unless the caller passes ``device``.
 """
 

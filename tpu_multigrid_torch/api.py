@@ -53,6 +53,8 @@ def solve_poisson(
     refined: Optional[bool] = None,
     neumann=(),
     mesh=None,
+    u0=None,
+    dist_path: str = "jnp",
     order: int = 2,
     bc: str = "dirichlet",
     device: Union[str, torch.device, None] = None,
@@ -79,11 +81,31 @@ def solve_poisson(
     K2-local (``cycles.periodic_fused``); the rest, and an FMG start, run
     the plain torus operators.
 
-    Not ported yet (each raises ``NotImplementedError``): ``mesh``,
-    ``neumann``, ``order=4``, and a ``smooth_dtype`` other than ``dtype``.
+    ``mesh`` (a :class:`tpu_multigrid_torch.dist.GridMesh`, every rank
+    calling) solves on a grid of ranks, on the mesh's device, through
+    ``dist_path="pallas"``: the fused tier (``dist.sharded_solve_pallas``),
+    or with ``refined`` its compensated refinement
+    (``dist.refined_sharded_solve_pallas``, a double-single pair), with the
+    same automatic choice of ``refined`` as above.  ``result.u`` is then
+    this rank's owned block (``dist.gather_full`` assembles the global
+    (S0, S0) grid), and ``u0`` a starting iterate on that global grid.
+    ``u0`` is taken only with ``mesh``.
+
+    Not ported yet (each raises ``NotImplementedError``): ``neumann``,
+    ``order=4``, a ``smooth_dtype`` other than ``dtype``, and with ``mesh``
+    ``dist_path="jnp"`` (the default: the plain shard-local tier) and
+    ``bc="periodic"``.
     """
     config = _level_config(config, finest_level)
+    if mesh is not None:
+        return _solve_on_mesh(config, mesh, forcing, boundary, tol,
+                              max_cycles, num_cycles, use_fmg, refined,
+                              neumann, u0, dist_path, order, bc, device)
     _check_single_device(config, mesh)
+    if u0 is not None:
+        raise ValueError("u0 is taken only with mesh= (distributed solves); "
+                         "the single-device solve starts from zero or from "
+                         "use_fmg")
     if neumann:
         raise NotImplementedError("neumann sides are not ported yet")
     if bc == "periodic":
@@ -104,6 +126,66 @@ def solve_poisson(
                              **_pad_kw(config))
     return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
                 refined=refined, boundary=boundary)
+
+
+_DIST_QUEUE = "ROADMAP.md, queue 1 item 16"
+
+
+def _solve_on_mesh(config, mesh, forcing, boundary, tol, max_cycles,
+                   num_cycles, use_fmg, refined, neumann, u0, dist_path,
+                   order, bc, device) -> SolveResult:
+    """``solve_poisson(mesh=...)``: the constant-coefficient Dirichlet
+    order-2 problem on the fused tier."""
+    from .dist import refined_sharded_solve_pallas, sharded_solve_pallas
+    _check_single_device(config, None)
+    if bc == "periodic":
+        raise NotImplementedError("bc='periodic' with mesh= (dist/periodic"
+                                  f") is not ported yet ({_DIST_QUEUE})")
+    if bc != "dirichlet":
+        raise ValueError(f'bc must be "dirichlet" or "periodic", got {bc!r}')
+    if neumann:
+        raise NotImplementedError("neumann sides with mesh= are not ported "
+                                  f"yet ({_DIST_QUEUE})")
+    if order == 4:
+        raise NotImplementedError("order=4 with mesh= is not ported yet "
+                                  f"({_DIST_QUEUE})")
+    if order != 2:
+        raise ValueError(f"order must be 2 or 4, got {order}")
+    if dist_path == "jnp":
+        raise NotImplementedError('dist_path="jnp" (the plain shard-local '
+                                  "tier, dist/shard_cycle.sharded_solve) is "
+                                  f'not ported yet ({_DIST_QUEUE}); pass '
+                                  'dist_path="pallas"')
+    if dist_path != "pallas":
+        raise ValueError(f'dist_path must be "jnp" or "pallas", got '
+                         f"{dist_path!r}")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.device}")
+    if boundary is not None:
+        raise ValueError("mesh= does not support boundary lifting yet; "
+                         "use the single-device path")
+    if tol is None and num_cycles is None:
+        raise ValueError("need either tol or num_cycles (both are None)")
+    if refined is None:
+        refined = (tol is not None and tol < 1e-5
+                   and config.dtype == torch.float32)
+    if refined:
+        if use_fmg:
+            raise ValueError("mesh= refined=True does not take use_fmg "
+                             "yet (seed via u0= instead)")
+        if u0 is not None:
+            raise ValueError('dist_path="pallas" refined does not take u0 '
+                             "yet")
+        res, _ = refined_sharded_solve_pallas(
+            config, mesh, forcing=forcing, tol=tol, max_iters=max_cycles,
+            num_cycles=num_cycles)
+        return res
+    res, _ = sharded_solve_pallas(
+        config, mesh, forcing=forcing, u0=u0, use_fmg=use_fmg,
+        tol=tol if tol is not None else 0.0, max_cycles=max_cycles,
+        num_cycles=num_cycles)
+    return res
 
 
 def _solve_periodic(config, forcing, boundary, refined, order, tol,
@@ -440,8 +522,8 @@ def _level_config(config: Optional[MultigridConfig],
 def _check_single_device(config: MultigridConfig, mesh) -> None:
     """The front doors' options that are not ported yet raise."""
     if mesh is not None:
-        raise NotImplementedError("distributed solves (mesh=) are not "
-                                  "ported yet")
+        raise NotImplementedError("distributed solves (mesh=) of this door "
+                                  f"are not ported yet ({_DIST_QUEUE})")
     if config.effective_smooth_dtype != config.dtype:
         raise NotImplementedError("smooth_dtype other than dtype (the delta "
                                   "form) is not ported yet")

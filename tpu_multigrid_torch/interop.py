@@ -213,3 +213,28 @@ def refinement_state_from_numpy(components, device=None) -> tuple:
     iterate as tensors on ``device``, e.g. to resume the port's
     ``precision.solve_refined_ds(u0=hi, u0_lo=lo)`` from a JAX iterate."""
     return tuple(tensor_from_numpy(c, device) for c in components)
+
+
+def sharded_levels_from_jax(levels):
+    """The port's :class:`~tpu_multigrid_torch.dist.shard_cycle.
+    ShardedLevels` of a JAX ``ShardedLevels`` (its ``sizes`` and
+    ``num_sharded``)."""
+    from .dist.shard_cycle import ShardedLevels
+    return ShardedLevels(tuple((int(n), int(S)) for n, S in levels.sizes),
+                         int(levels.num_sharded))
+
+
+def ext_block_from_numpy(full, mesh_shape, coords, device=None
+                         ) -> torch.Tensor:
+    """The ghost-extended block of rank ``coords`` of an (my, mx) mesh
+    holding the global (S, S) array ``full``: its (S/my, S/mx) owned block
+    inside zero ghost zones (``dist.pallas_cycle.scatter_owned``)."""
+    from .kernels.local import GC, GR
+    a = np.asarray(full)
+    my, mx = mesh_shape
+    lr, lc = a.shape[0] // my, a.shape[1] // mx
+    cy, cx = coords
+    ext = np.zeros((lr + 2 * GR, lc + 2 * GC), a.dtype)
+    ext[GR:GR + lr, GC:GC + lc] = a[cy * lr:(cy + 1) * lr,
+                                    cx * lc:(cx + 1) * lc]
+    return tensor_from_numpy(ext, device)

@@ -5,11 +5,12 @@ launches the kernel on CUDA tensors.  Nothing is built when this package is
 imported: ``_build.lib()`` compiles ``csrc/*.cu`` at the first launch.
 """
 
-from . import (compres, fas, fas3d, lines, local, stencil, stencil3d,
-               transfer, transfer3d, varstencil, vartransfer, vartransfer3d)
+from . import (compres, fas, fas3d, lines, local, localref, stencil,
+               stencil3d, transfer, transfer3d, varstencil, vartransfer,
+               vartransfer3d)
 
 _MODULES = (transfer, stencil, compres, varstencil, vartransfer, stencil3d,
-            transfer3d, vartransfer3d, lines, fas, fas3d, local)
+            transfer3d, vartransfer3d, lines, fas, fas3d, local, localref)
 
 
 def launch_counts() -> dict:

@@ -23,45 +23,25 @@
 // Arithmetic: TwoSum is exact IEEE arithmetic, so every operation goes
 // through __fadd_rn/__fsub_rn/__fmul_rn, which the compiler neither
 // contracts into an FMA nor reassociates, in the order of
-// tpu_multigrid_torch/precision.py::_ds_cascade / _ts_cascade: r agrees with
-// the plain torch version bitwise.
+// tpu_multigrid_torch/precision.py::_ds_cascade / _ts_cascade (compsum.cuh):
+// r agrees with the plain torch version bitwise.
 
 #include <cuda_runtime.h>
 
-#include "twosum.cuh"
+#include "compsum.cuh"
 
 namespace {
 
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
 
-// Neighbour sum with Neumaier compensation, terms in the plain version's
-// order (i-1, i+1, j-1, j+1): s + c is the exact sum.
-__device__ __forceinline__ void nbr_comp(const float* __restrict__ x,
-                                         size_t k, int S, float& s,
-                                         float& c) {
-  float e;
-  s = __ldg(x + k - S);
-  c = 0.0f;
-  two_sum(s, __ldg(x + k + S), s, e);
-  c = __fadd_rn(c, e);
-  two_sum(s, __ldg(x + k - 1), s, e);
-  c = __fadd_rn(c, e);
-  two_sum(s, __ldg(x + k + 1), s, e);
-  c = __fadd_rn(c, e);
-}
-
-__device__ __forceinline__ float nbr(const float* __restrict__ x, size_t k,
-                                     int S) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__ldg(x + k - S), __ldg(x + k + S)),
-                             __ldg(x + k - 1)),
-                   __ldg(x + k + 1));
-}
-
-// A(x) = 4x - nbr(x) in plain f32: the smallest component's term.
-__device__ __forceinline__ float apply_a(const float* __restrict__ x,
-                                         size_t k, int S) {
-  return __fsub_rn(__fmul_rn(4.0f, __ldg(x + k)), nbr(x, k, S));
+// x's four neighbours of node k (up, down, left, right).
+__device__ __forceinline__ void nbrs(const float* __restrict__ x, size_t k,
+                                     int S, float n[4]) {
+  n[0] = __ldg(x + k - S);
+  n[1] = __ldg(x + k + S);
+  n[2] = __ldg(x + k - 1);
+  n[3] = __ldg(x + k + 1);
 }
 
 __global__ void ds_residual_kernel(const float* __restrict__ b,
@@ -76,16 +56,10 @@ __global__ void ds_residual_kernel(const float* __restrict__ b,
     r[k] = 0.0f;
     return;
   }
-  float nbr_h, c_h, s, e1, e2, c1, c2, c3, c4;
-  nbr_comp(uh, k, S, nbr_h, c_h);
-  two_sum(__ldg(b + k), nbr_h, s, e1);
-  two_sum(s, __fmul_rn(-4.0f, __ldg(uh + k)), s, e2);
-  const float a_lo = apply_a(ul, k, S);
-  two_sum(s, e1, s, c1);
-  two_sum(s, e2, s, c2);
-  two_sum(s, c_h, s, c3);
-  two_sum(s, -a_lo, s, c4);
-  r[k] = __fadd_rn(s, __fadd_rn(c1, __fadd_rn(c2, __fadd_rn(c3, c4))));
+  float nh[4], nl[4];
+  nbrs(uh, k, S, nh);
+  nbrs(ul, k, S, nl);
+  r[k] = ds_resid(__ldg(b + k), __ldg(uh + k), nh, __ldg(ul + k), nl);
 }
 
 __global__ void ts_residual_kernel(const float* __restrict__ b,
@@ -101,26 +75,12 @@ __global__ void ts_residual_kernel(const float* __restrict__ b,
     r[k] = 0.0f;
     return;
   }
-  float nbr_h, c_h, nbr_m, c_m, s, e1, e2, e3, e4;
-  float c1, c2, c3, c4, c5, c6, c7;
-  nbr_comp(uh, k, S, nbr_h, c_h);
-  nbr_comp(um, k, S, nbr_m, c_m);
-  two_sum(__ldg(b + k), nbr_h, s, e1);
-  two_sum(s, __fmul_rn(-4.0f, __ldg(uh + k)), s, e2);
-  two_sum(s, nbr_m, s, e3);
-  two_sum(s, __fmul_rn(-4.0f, __ldg(um + k)), s, e4);
-  const float a_l = apply_a(ul, k, S);
-  two_sum(s, e1, s, c1);
-  two_sum(s, e2, s, c2);
-  two_sum(s, e3, s, c3);
-  two_sum(s, e4, s, c4);
-  two_sum(s, c_h, s, c5);
-  two_sum(s, c_m, s, c6);
-  two_sum(s, -a_l, s, c7);
-  const float tail = __fadd_rn(
-      c1, __fadd_rn(c2, __fadd_rn(c3, __fadd_rn(c4, __fadd_rn(
-                                              c5, __fadd_rn(c6, c7))))));
-  r[k] = __fadd_rn(s, tail);
+  float nh[4], nm[4], nl[4];
+  nbrs(uh, k, S, nh);
+  nbrs(um, k, S, nm);
+  nbrs(ul, k, S, nl);
+  r[k] = ts_resid(__ldg(b + k), __ldg(uh + k), nh, __ldg(um + k), nm,
+                  __ldg(ul + k), nl);
 }
 
 dim3 grid_for(int S) {

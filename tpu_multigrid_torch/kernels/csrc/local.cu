@@ -1,9 +1,10 @@
 // K1-local (smooth_restrict_ext) and K2-local (prolong_smooth_ext, with or
 // without the owned resnorm): the two kernels of a level visit on a
-// ghost-extended block, for Hopper (sm_90a).
+// ghost-extended block, and K0-local (smooth_ext, residual_ext): the
+// streaming smoother on such a block, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels tpu_multigrid/kernels/local.py::_k1_local
-// and ::_k2_local.
+// Replaces the Pallas TPU kernels tpu_multigrid/kernels/local.py::_k1_local,
+// ::_k2_local and ::_streamed_local.
 //
 // The block is an (R, C) = (lr + 2*GR, lc + 2*GC) array, GR = 16 ghost rows
 // and GC = 256 ghost columns a side, whose cell (i, j) has the global
@@ -26,6 +27,10 @@
 //       u'; the resnorm variant also writes one partial sum of (b - A u')^2
 //       over the owned live cells (rows GR..R-GR-1, columns GC..C-GC-1) per
 //       block, which a one-block kernel adds up in a fixed order.
+//   K0: `steps` smoothing steps on u (u' written), or, with no steps, the
+//       residual r = b - A u at the live cells and 0 elsewhere (r written).
+//       The distributed refinement (dist/refine_pallas.py) smooths its
+//       delta-form corrections with it.
 //
 // Every output is defined on the whole array: cells outside the array read
 // as zero and are never updated, as in the plain versions, so the kernels
@@ -39,8 +44,10 @@
 //
 // What the design does about it: transfer.cu's.  One block per 64x64 fine
 // tile at an even array origin loads the tile plus a halo of steps + 2 rings
-// (K1) or steps + 1 (K2) into shared memory, runs every step there and
-// writes only the outputs.
+// (K1), steps + 1 (K2) or steps, one more with the residual (K0), into
+// shared memory, runs every step there and writes only the outputs.  K0 is
+// stencil.cu's streaming smoother on this geometry: 2 or 3 passes of R*C*4
+// bytes against 8*steps (or 6) flops per cell.
 //
 // Arithmetic: the TPU kernels' operations in their order (kernels/
 // local.py, transfer.py::_fw_aggregate and ::_bilinear_prolong), built with
@@ -48,13 +55,11 @@
 // with row3 = (r[i-1] + 2 r[i]) + r[i+1], and the odd-odd prolongation is
 // 0.5 * (0.5 * (c + c_down) + 0.5 * (c_right + c_down_right)).
 
+#include "ext.cuh"
 #include "levelvisit.cuh"
 #include "window.cuh"
 
 namespace {
-
-constexpr int kGR = 16;   // ghost rows per side
-constexpr int kGC = 256;  // ghost columns per side
 
 __device__ __forceinline__ int floor_half(int x) {
   return x >= 0 ? x / 2 : -((1 - x) / 2);
@@ -66,24 +71,6 @@ __device__ __forceinline__ float fw_aggregate(const float* r, int k, int w) {
     return (r[c - w] + 2.0f * r[c]) + r[c + w];
   };
   return 0.25f * ((row3(k - 1) + 2.0f * row3(k)) + row3(k + 1));
-}
-
-// Bilinear prolongation of the coarse block ec (Cc columns) at fine cell
-// (i, j) >= 0, in _bilinear_prolong's order: 2x2 replication, then the
-// average with the next row, then with the next column (the averages of a
-// value with itself are exact and left out).
-__device__ __forceinline__ float prolong_ext(const float* __restrict__ ec,
-                                             int Cc, int i, int j) {
-  const int I = (i >> 1) + kGR / 2;
-  const int J = (j >> 1) + kGC / 2;
-  auto c = [&](int a, int bb) { return __ldg(ec + (size_t)a * Cc + bb); };
-  const bool odd_i = i & 1;
-  const bool odd_j = j & 1;
-  if (!odd_i && !odd_j) return c(I, J);
-  if (odd_i && !odd_j) return 0.5f * (c(I, J) + c(I + 1, J));
-  if (!odd_i && odd_j) return 0.5f * (c(I, J) + c(I, J + 1));
-  return 0.5f * (0.5f * (c(I, J) + c(I + 1, J)) +
-                 0.5f * (c(I, J + 1) + c(I + 1, J + 1)));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -239,6 +226,44 @@ prolong_smooth_ext_kernel(const float* __restrict__ u,
   }
 }
 
+// K0-local: `steps` smoothing steps (u_out) or, with steps == 0 and r_out,
+// the residual of u (r_out).
+__global__ void __launch_bounds__(kThreads)
+streamed_ext_kernel(const float* __restrict__ u, const float* __restrict__ b,
+                    float* __restrict__ u_out, float* __restrict__ r_out,
+                    ExtGeom g, int steps, int rbgs, Weights wt) {
+  extern __shared__ float smem[];
+  const int halo = steps + (r_out != nullptr ? 1 : 0);
+  const int w = kTile + 2 * halo;
+  const int ro = blockIdx.y * kTile;
+  const int co = blockIdx.x * kTile;
+  const int r0 = ro - halo;
+  const int c0 = co - halo;
+  float* buf_a = smem;
+  float* buf_b = smem + w * w;
+  float* bw = smem + 2 * w * w;
+  load_window(buf_a, u, g, r0, c0, w);
+  load_window(bw, b, g, r0, c0, w);
+  __syncthreads();
+
+  const float* v = smooth_window(buf_a, buf_b, bw, w, r0, c0, g, steps, 0,
+                                 rbgs, wt);
+
+  for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
+    const int gi = ro + ti;
+    for (int tj = threadIdx.x; tj < kTile; tj += blockDim.x) {
+      const int gj = co + tj;
+      if (!g.in_array(gi, gj)) continue;
+      const int k = (ti + halo) * w + tj + halo;
+      if (u_out != nullptr) u_out[g.at(gi, gj)] = v[k];
+      if (r_out != nullptr) {
+        r_out[g.at(gi, gj)] = g.live(gi, gj) ? residual_at(v, bw, k, w)
+                                             : 0.0f;
+      }
+    }
+  }
+}
+
 dim3 tile_grid(int R, int C) {
   return dim3((C + kTile - 1) / kTile, (R + kTile - 1) / kTile);
 }
@@ -308,6 +333,31 @@ int tmt_prolong_smooth_ext(const void* u, const void* b, const void* ec,
   sum_partials_kernel<<<1, dim3(kThreadsX, kThreadsY), 0, st>>>(
       static_cast<const float*>(partials), grid.x * grid.y,
       static_cast<float*>(out_sum));
+  return cudaGetLastError();
+}
+
+// K0-local.  u_out or r_out may be null (not written); r_out only with
+// steps == 0.  weights as above.
+int tmt_streamed_ext(const void* u, const void* b, void* u_out, void* r_out,
+                     int R, int C, int o0, int o1, int n, int steps, int rbgs,
+                     const void* weights, int count, void* stream) {
+  static int configured[kMaxDevices] = {};
+  if (steps < 0 || (r_out != nullptr && steps != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  Weights wt;
+  cudaError_t err =
+      make_weights(static_cast<const float*>(weights), count, &wt);
+  if (err != cudaSuccess) return err;
+  const int bytes = window_bytes(steps + (r_out != nullptr ? 1 : 0));
+  err = allow_smem(streamed_ext_kernel, bytes, configured);
+  if (err != cudaSuccess) return err;
+  const ExtGeom g{R, C, o0, o1, n};
+  streamed_ext_kernel<<<tile_grid(R, C), dim3(kThreadsX, kThreadsY), bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(u), static_cast<const float*>(b),
+      static_cast<float*>(u_out), static_cast<float*>(r_out), g, steps, rbgs,
+      wt);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""K1 and K2 on ghost-extended blocks: K1-local and K2-local.
+"""K1 and K2 on ghost-extended blocks, K1-local and K2-local, and the
+streaming smoother on such blocks, K0-local.
 
 A ghost-extended block is an ``(R, C) = (lr + 2 GR, lc + 2 GC)`` array, an
 ``(lr, lc)`` owned region inside ``GR = 16`` ghost rows and ``GC = 256``
@@ -16,12 +17,14 @@ coarse cell ``(i/2 + GR/2, j/2 + GC/2)``.
 * K2-local, :func:`prolong_smooth_ext`: ``where(live, u + P ec, 0)`` and
   the smoothing steps, optionally with the sum of squares of the residual
   over the owned live cells (``want_resnorm``).
+* K0-local, :func:`smooth_ext` and :func:`residual_ext`: the smoothing
+  steps alone, or the residual ``where(live, b - A u, 0)`` alone.
 
 They replace the Pallas TPU kernels ``tpu_multigrid/kernels/local.py::
-_k1_local`` and ``::_k2_local`` (``csrc/local.cu``), whose entries they
-keep: ``origin`` is a pair of host ints.  Each entry runs its plain torch
-version (``*_plain``) on CPU tensors and launches its CUDA kernel on CUDA
-tensors, never falling back.  Every output is defined on the whole array:
+_k1_local``, ``::_k2_local`` and ``::_streamed_local`` (``csrc/local.cu``),
+whose entries they keep: ``origin`` is a pair of host ints.  Each entry runs
+its plain torch version (``*_plain``) on CPU tensors and launches its CUDA
+kernel on CUDA tensors, never falling back.  Every output is defined on the whole array:
 cells outside the array read as zero and are never updated, and the coarse
 cells no fine cell restricts to are zero.  The TPU kernels leave the ghost
 ring undefined, so the two packages agree on the owned region (fine rows
@@ -42,7 +45,8 @@ GR = 16       # ghost rows per side (>= steps + 2 for every fused kernel)
 GC = 256      # ghost columns per side
 
 LAUNCHES = {"smooth_restrict_ext": 0, "prolong_smooth_ext": 0,
-            "prolong_smooth_ext_resnorm": 0}
+            "prolong_smooth_ext_resnorm": 0, "smooth_ext": 0,
+            "residual_ext": 0}
 
 
 def supported_local(R: int, C: int, steps: int, dtype) -> bool:
@@ -167,9 +171,61 @@ def prolong_smooth_ext_resnorm_plain(u, b, ec, origin, n: int, sweeps: int,
     return v, torch.sum(r * r)
 
 
+def smooth_ext_plain(u, b, origin, n: int, sweeps: int,
+                     smoother: str = "jacobi", omega=2.0 / 3.0):
+    """K0-local's plain version: u after ``sweeps`` sweeps."""
+    R, C = u.shape
+    live, color = _masks(R, C, origin, n, u.device)
+    return _smooth_plain(u, b, live, color, sweeps, smoother, omega)
+
+
+def residual_ext_plain(u, b, origin, n: int):
+    """K0-local's plain version with no steps: where(live, b - A u, 0)."""
+    R, C = u.shape
+    return _residual_plain(u, b, _masks(R, C, origin, n, u.device)[0])
+
+
 # ---------------------------------------------------------------------------
 # Entries
 # ---------------------------------------------------------------------------
+
+def _streamed_ext(entry, u, b, origin, n, sweeps, smoother, omega, want_u):
+    R, C = u.shape
+    _build.check_inputs(entry, (u, b), ((R, C), (R, C)))
+    lib = _build.lib()
+    steps, rbgs, weights = _launch_args(entry, lib, smoother, omega, sweeps)
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        err = lib.tmt_streamed_ext(
+            u.data_ptr(), b.data_ptr(), out.data_ptr() if want_u else None,
+            None if want_u else out.data_ptr(), R, C, int(origin[0]),
+            int(origin[1]), n, steps, rbgs, weights.ctypes.data,
+            weights.size // 2, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, entry)
+    LAUNCHES[entry] += 1
+    return out
+
+
+def smooth_ext(u, b, origin, n: int, sweeps: int, smoother: str = "jacobi",
+               omega=2.0 / 3.0):
+    """K0-local: u after ``sweeps`` sweeps (u itself when ``sweeps`` <= 0)."""
+    _check("smooth_ext", u, smoother)
+    if sweeps <= 0:
+        return u
+    if u.device.type == "cpu":
+        return smooth_ext_plain(u, b, origin, n, sweeps, smoother, omega)
+    return _streamed_ext("smooth_ext", u, b, origin, n, sweeps, smoother,
+                         omega, True)
+
+
+def residual_ext(u, b, origin, n: int):
+    """K0-local with no steps: r = where(live, b - A u, 0)."""
+    _check("residual_ext", u, "jacobi")
+    if u.device.type == "cpu":
+        return residual_ext_plain(u, b, origin, n)
+    return _streamed_ext("residual_ext", u, b, origin, n, 0, "jacobi", 1.0,
+                         False)
+
 
 def smooth_restrict_ext(u, b, origin, n: int, sweeps: int,
                         smoother: str = "jacobi", omega=2.0 / 3.0):
