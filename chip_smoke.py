@@ -117,13 +117,29 @@ Phases, each printing its own lines:
    level-13 ts solve on (1, 1) against a 2 x 2 gloo mesh of four spawned
    ranks sharing the card (strips staged through host memory): the same
    iterations, histories and iterates.
+4l. The distributed fused FAS tier (dist.fas_pallas): K1f-local, K2f-local
+   and K2f-local-resnorm, Bratu and quadratic, 1-3 sweeps, bitwise against
+   their plain versions over the whole arrays (the resnorm's sum to 1e-4),
+   random u, b and ec, ghosts included, at the (1, 1) level-12 block and a
+   2 x 2 level-12 shard block, four origins each; a caller's own phi and a
+   block outside the gate refused on the card.  Then, on a one-rank NCCL
+   group, each with exact launch counts: solve_bratu(12, lam=4) and
+   solve_quasilinear_diffusion(12, gamma=2) with mesh= and
+   dist_path="pallas" (the doors' defaults, Jacobi (2, 2)) beside phase
+   4i's single-device kernel route (iterations within 1, or both stalled at
+   the f32 floor), seconds with set-up, peak memory, ms per fused FAS
+   V-cycle and its replicated tail's share; the same doors at level 13;
+   solve_bratu(12) on a 2 x 2 gloo mesh of four spawned ranks sharing the
+   card against the (1, 1) run, 4 fixed cycles (histories rtol 1e-4,
+   iterates rtol 1e-5, atol 1e-6).
 5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var, anisotropic,
    FAS Bratu and quasilinear), at 513^3 (3D, 3D var, FAS Bratu) and the
    periodic 8192^2 torus on both paths, one ts iteration at 16385^2 on both
    paths, and each kernel beside its plain version (K1/K2/ds/ts at
    S = 8448, the var, zebra and FAS kernels at 4352, the 3D ones at (528,
    528, 640), K1-local and K2-local at (8224, 8704), the distributed
-   refinement's at (17440, 17920), the others at 16640),
+   refinement's at (17440, 17920), K1f-local and K2f-local at (4384,
+   4864), the others at 16640),
    with CUDA events (median of 7 after warm-up), and the one PyTorch call
    that computes the same function where there is one.
 
@@ -173,6 +189,7 @@ _F = "tpu_multigrid/kernels/fas.py"
 _F3 = "tpu_multigrid/kernels/fas3d.py"
 _L = "tpu_multigrid/kernels/local.py"
 _LR = "tpu_multigrid/kernels/localref.py"
+_LF = "tpu_multigrid/kernels/localfas.py"
 REPLACES = {
     "smooth_restrict": f"{_T}:307",
     "prolong_smooth": f"{_T}:461",
@@ -227,12 +244,20 @@ REPLACES = {
     "ts_residual_ext": f"{_LR}:74",
     "prolong_pair_ext": f"{_LR}:183",
     "comp_add_ext": f"{_LR}:320",
+    "fas_smooth_restrict_ext": f"{_LF}:52",
+    "fas_prolong_smooth_ext": f"{_LF}:182",
+    "fas_prolong_smooth_ext_resnorm": f"{_LF}:182",
+    "qfas_smooth_restrict_ext": f"{_LF}:52",
+    "qfas_prolong_smooth_ext": f"{_LF}:182",
+    "qfas_prolong_smooth_ext_resnorm": f"{_LF}:182",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
                                                    "ts_residual")
                           else "localref.cu" if REPLACES[name].startswith(
                               _LR)
+                          else "localfas.cu" if REPLACES[name].startswith(
+                              _LF)
                           else "local.cu" if REPLACES[name].startswith(_L)
                           else "fas3d.cu" if REPLACES[name].startswith(_F3)
                           else "fas.cu" if REPLACES[name].startswith(_F)
@@ -397,9 +422,10 @@ def track(errs, name, got, want):
 def track_norm(errs, name, got, want):
     """Check a fused residual norm against its plain version to 1e-4
     relative (the two sum in different orders); keep the largest absolute
-    difference seen.  Returns the relative difference."""
+    difference seen.  Returns the relative difference (a zero sum, of a
+    block that owns no live cell, must come out zero)."""
     diff = abs(float(got) - float(want))
-    rel = diff / float(want)
+    rel = diff / float(want) if float(want) else (diff and float("inf"))
     check(rel <= 1e-4, f"{name}: norm rel err {rel} (<= 1e-4)")
     errs[name] = max(errs.get(name, 0.0), diff)
     return rel
@@ -2118,8 +2144,7 @@ def check_fas(errs, cases):
     rel = 0.0
     for entry, (kern, plain) in cases.items():
         got, want = kern(), plain()
-        if entry.startswith(("fas_prolong_smooth_resnorm",
-                             "qfas_prolong_smooth_resnorm")):
+        if "_resnorm" in entry:
             track(errs, entry, got[0], want[0])
             rel = max(rel, track_norm(errs, entry, got[1], want[1]))
         elif isinstance(got, tuple):
@@ -3200,6 +3225,375 @@ def dist_times(card, times, work):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 4l. The distributed fused FAS tier (dist/fas_pallas.py)
+# ---------------------------------------------------------------------------
+
+DFAS_LEVEL = 12
+DFAS_BIG_LEVEL = 13
+DFAS_FIXED = 4
+DFAS_ENTRIES = ("smooth_restrict_ext", "prolong_smooth_ext",
+                "prolong_smooth_ext_resnorm")
+
+
+def dfas_door(family):
+    """(door, its keyword arguments, entry prefix) of a family, at phase
+    4i's problems: Bratu lam = 4, a = 1 + 2 u^2."""
+    import tpu_multigrid_torch as tmg
+    if family == "bratu":
+        return tmg.solve_bratu, dict(lam=FAS_LAM), "fas_"
+    return tmg.solve_quasilinear_diffusion, dict(gamma=FAS_GAMMA), "qfas_"
+
+
+def dfas_levels(family, level, mesh_shape):
+    """The level layout of a door's default config on a mesh."""
+    from tpu_multigrid_torch.dist import pallas_cycle as PC
+    return PC.pallas_level_sizes(fas_config(family, level, True), mesh_shape)
+
+
+def dfas_blocks():
+    """(R, C, n) of the blocks the FAS kernels are held at: the (1, 1)
+    level-12 finest block and a 2 x 2 level-12 shard block."""
+    out = []
+    for shape in ((1, 1), (2, 2)):
+        n, S = dfas_levels("bratu", DFAS_LEVEL, shape).sizes[0]
+        out.append((S // shape[0] + 32, S // shape[1] + 512, n))
+    return out
+
+
+def dfas_counts(prefix, num_sharded, cycles):
+    """Launches of ``cycles`` fused FAS V-cycles: K1f-local at every
+    sharded level, K2f-local at every one but the finest, whose K2f-local
+    carries the norm."""
+    return expect(**{prefix + "smooth_restrict_ext": cycles * num_sharded,
+                     prefix + "prolong_smooth_ext":
+                         cycles * (num_sharded - 1),
+                     prefix + "prolong_smooth_ext_resnorm": cycles})
+
+
+def dfas_cases(family, u, b, ec, origin, n, sweeps):
+    """{entry: (kernel call, plain call)} of a family's three entries on an
+    extended block."""
+    from tpu_multigrid_torch.kernels import localfas as KLF
+    prefix, nl = fas_nl(family)
+    extra = ((1.0 / n) ** 2,) if prefix == "fas_" else ()
+    cases = {}
+    for name in DFAS_ENTRIES:
+        want = name.endswith("_resnorm")
+        entry = prefix + name.replace("_resnorm", "")
+        kern = getattr(KLF, entry)
+        plain = getattr(KLF, entry + "_plain")
+        args = ((u, b, origin, n, sweeps, 2.0 / 3.0) if "restrict" in name
+                else (u, b, ec, origin, n, sweeps, 2.0 / 3.0))
+        kw = {} if "restrict" in name else dict(want_resnorm=want)
+        full = args + nl + extra
+        cases[prefix + name] = (lambda k=kern, f=full, kw=kw: k(*f, **kw),
+                                lambda p=plain, f=full, kw=kw: p(*f, **kw))
+    return cases
+
+
+def phase_dist_fas_kernels(errs):
+    """K1f-local, K2f-local and K2f-local-resnorm, Bratu and quadratic,
+    1-3 sweeps, bitwise against their plain versions over the whole
+    arrays (the resnorm's sum to 1e-4), random u (scale 0.1), b and ec
+    (scale 0.05), ghosts included, at the (1, 1) level-12 block and a 2 x 2
+    level-12 shard block, four shard origins each; then the refusals of a
+    caller's own nonlinearity and of a block outside the gate."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.kernels import local as KL
+    from tpu_multigrid_torch.kernels import localfas as KLF
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(51)
+    for R, C, n in dfas_blocks():
+        u = 0.1 * torch.randn((R, C), generator=gen, device=DEVICE)
+        b = torch.randn((R, C), generator=gen, device=DEVICE)
+        ec = 0.05 * torch.randn(KL.coarse_shape(R, C), generator=gen,
+                                device=DEVICE)
+        rel = 0.0
+        for origin in dist_origins(R, C):
+            for family in ("bratu", "quadratic"):
+                for sweeps in (1, 2, 3):
+                    rel = max(rel, check_fas(errs, dfas_cases(
+                        family, u, b, ec, origin, n, sweeps)))
+        print(f"[dist-fas-kernels] ({R}, {C}) -> {KL.coarse_shape(R, C)}, "
+              f"n={n}, origins {dist_origins(R, C)}, Bratu and quadratic, "
+              f"1-3 sweeps: K1f-local (u', uc0, bc), K2f-local, "
+              f"K2f-local-resnorm bitwise equal over the whole arrays; "
+              f"resnorm sum rel {rel:.3g}")
+        del u, b, ec
+    torch.cuda.empty_cache()
+    u = torch.zeros((288, 768), device=DEVICE)
+    refusals = []
+    for call in (lambda: KLF.fas_smooth_restrict_ext(
+                     u, u, (0, 0), 500, 2, 0.5, torch.exp, torch.exp, 1e-6),
+                 lambda: KLF.qfas_prolong_smooth_ext(
+                     u[:280], u[:280], u, (0, 0), 500, 2, 0.5,
+                     tmg.QuadraticCoefficient(1.0))):
+        try:
+            call()
+            refusals.append(False)
+        except ValueError:
+            refusals.append(True)
+    check(all(refusals), f"a caller's own phi / a block outside the gate "
+                         f"was taken on the card: {refusals}")
+    print("[dist-fas-kernels] a caller's own phi and a block outside "
+          "fas_supported_local raise ValueError on the card")
+    torch.cuda.synchronize()
+
+
+def dfas_timed(path, fn):
+    """One call on its path with launch counts set to 0 just before it:
+    (result, seconds with set-up, peak device bytes above what was
+    allocated before the call)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = drive(path, fn)
+    secs = time.perf_counter() - t0
+    return res, secs, torch.cuda.max_memory_allocated() - base
+
+
+def dfas_cycle_times(mesh, family, level):
+    """(ms of one fused FAS V-cycle with its norm, ms of its replicated
+    plain tail alone, ms of the single-device kernel FAS cycle, the level
+    layout) at the door's default config, CUDA events, median of 7, each
+    from a zero guess; the tail's right-hand side is the constant forcing
+    4 h^2 on its first level."""
+    import dataclasses as dc
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch.dist import fas_pallas as FP
+    from tpu_multigrid_torch.dist import pallas_cycle as PC
+    from tpu_multigrid_torch.dist.fas import build_replicated_tail
+    cfg = fas_config(family, level, True)
+    prefix, nl = fas_nl(family)
+    kw = (dict(phi=None, dphi=None, a=nl[0]) if prefix == "qfas_"
+          else dict(phi=nl[0], dphi=nl[1]))
+    levels = PC.pallas_level_sizes(cfg, (1, 1))
+    if prefix == "qfas_":
+        tail = tmg.Hierarchy(tuple(tmg.QuasilinearFluxOp(n, S, nl[0], nl[0])
+                                   for n, S in levels.sizes), None)
+    else:
+        tail = build_replicated_tail(levels, cfg, nl[0], nl[1],
+                                     device=mesh.device)
+    n0, S0 = levels.sizes[0]
+    be = PC.rhs_ext(mesh, n0, S0, S0, 4.0, torch.float32)
+    ue = torch.zeros_like(be)
+    ms = cuda_ms(lambda: FP._fas_vcycle_pallas(
+        mesh, levels, tail, cfg, 0, ue, be, want_norm=True, **kw))
+    ns = levels.num_sharded
+    n, S = levels.sizes[ns]
+    bc = torch.zeros((S, S), device=DEVICE)
+    bc[1:n, 1:n] = 4.0 / n ** 2
+    uc = torch.zeros_like(bc)
+    plain = dc.replace(cfg, use_kernels=False)
+    tail_ms = cuda_ms(lambda: tmg.fas_cycle(tail, plain, uc, bc, k=ns))
+    prob = fas_problem(family, cfg, 2)
+    b = prob.rhs()
+    u = torch.zeros_like(b)
+    single_ms = cuda_ms(lambda: tmg.fas_cycle(prob.hierarchy, cfg, u, b))
+    del prob, b, u, ue, be, uc, bc, tail
+    torch.cuda.empty_cache()
+    return ms, tail_ms, single_ms
+
+
+def dfas_rank_program(mesh, level, cycles):
+    """A rank of the 2 x 2 mesh: solve_bratu on the mesh, ``cycles`` fixed
+    cycles, with its launch counts and seconds; rank 0 also returns the
+    gathered iterate."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import dist, kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tmg.solve_bratu(level, lam=FAS_LAM, mesh=mesh, dist_path="pallas",
+                          num_cycles=cycles)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    u = dist.gather_full(mesh, res.u.contiguous()).cpu()
+    return dict(hist=res.res_history, iterations=res.iterations,
+                counts=counts, seconds=secs,
+                u=u if mesh.rank == 0 else None)
+
+
+def phase_dist_fas_slice(card, record_fas):
+    """The three FAS doors' mesh route on a one-rank NCCL group at full
+    width, and Bratu on a 2 x 2 gloo mesh sharing the card; each path with
+    launch counts set to 0 just before it and checked exactly after."""
+    import os
+    import tempfile
+    import torch.distributed as tdist
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import dist
+    summary = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    tdist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "store"), world_size=1, rank=0)
+    try:
+        mesh = dist.make_grid_mesh((1, 1))
+        print(f"[dist-fas] one-rank {mesh.backend} group, mesh {mesh.shape} "
+              f"on {mesh.device}")
+        # 1-4. Bratu and quasilinear at 4097^2 beside phase 4i's
+        # single-device kernel route, and at 8193^2.
+        for family, level in (("bratu", DFAS_LEVEL),
+                              ("quadratic", DFAS_LEVEL),
+                              ("bratu", DFAS_BIG_LEVEL),
+                              ("quadratic", DFAS_BIG_LEVEL)):
+            door, kw, prefix = dfas_door(family)
+            tag = f"dist-fas-{'bratu' if family == 'bratu' else 'quasi'}"
+            path = f"{tag}-{level}"
+            res, secs, peak = dfas_timed(path, lambda: door(
+                level, mesh=mesh, dist_path="pallas", **kw))
+            levels = dfas_levels(family, level, (1, 1))
+            got = PATH_COUNTS[path]
+            want = dfas_counts(prefix, levels.num_sharded, res.iterations)
+            check(got == want, f"{path} launches {nonzero(got)}, expected "
+                               f"{nonzero(want)}")
+            check(bool(torch.isfinite(res.u).all())
+                  and (res.converged or res.stalled)
+                  and tuple(res.u.shape) == (levels.sizes[0][1],) * 2,
+                  f"{path}: {var_state(res)}, shape {tuple(res.u.shape)}")
+            ms, tail_ms, single_ms = dfas_cycle_times(mesh, family, level)
+            ns = levels.num_sharded
+            print(f"[dist-fas] {door.__name__}({level}, mesh=(1, 1), "
+                  f"dist_path='pallas'): {var_state(res)} after "
+                  f"{res.iterations} iterations, history {hist_str(res)}; "
+                  f"seconds for one call {secs:.3f}; peak device memory of "
+                  f"the call {peak / 2 ** 30:.2f} GiB; levels "
+                  f"{levels.sizes[:4]}... ({ns} sharded); launches "
+                  f"{nonzero(got)}  ({card})")
+            print(f"[dist-fas]   fused FAS V-cycle with its norm {ms:.3f} ms;"
+                  f" its replicated plain tail from {levels.sizes[ns][1]}^2 "
+                  f"alone {tail_ms:.3f} ms ({100 * tail_ms / ms:.1f} %); the "
+                  f"single-device kernel FAS cycle {single_ms:.3f} ms  "
+                  f"({card})")
+            line = dict(iterations=res.iterations, state=var_state(res),
+                        seconds=secs, peak_gib=peak / 2 ** 30,
+                        ms_per_cycle=ms, tail_ms=tail_ms,
+                        single_ms=single_ms, sharded=ns)
+            if level == DFAS_LEVEL:
+                ref = record_fas[f"fas-{tag[9:]}-{level}"]
+                same = (abs(res.iterations - ref["iterations"]) <= 1
+                        or var_state(res) == ref["state"] == "stalled")
+                print(f"[dist-fas]   phase 4i's single-device kernel route: "
+                      f"{ref['state']} after {ref['iterations']} "
+                      f"iterations; the mesh route: {var_state(res)} after "
+                      f"{res.iterations}")
+                check(same, f"{path}: {res.iterations} iterations "
+                            f"({var_state(res)}) against the single-device "
+                            f"route's {ref['iterations']} ({ref['state']})")
+            summary[path] = line
+            del res
+            torch.cuda.empty_cache()
+
+        # 5. Bratu on a 2 x 2 gloo mesh sharing the card against the (1, 1)
+        # NCCL run, 4 fixed cycles.
+        n = 2 ** DFAS_LEVEL
+        phys = (slice(0, n + 1), slice(0, n + 1))
+        fixed = f"dist-fas-bratu-{DFAS_LEVEL}-fixed"
+        r1 = drive(fixed, lambda: tmg.solve_bratu(
+            DFAS_LEVEL, lam=FAS_LAM, mesh=mesh, dist_path="pallas",
+            num_cycles=DFAS_FIXED))
+        lv1 = dfas_levels("bratu", DFAS_LEVEL, (1, 1))
+        want = dfas_counts("fas_", lv1.num_sharded, DFAS_FIXED)
+        check(PATH_COUNTS[fixed] == want, f"{fixed} launches "
+              f"{nonzero(PATH_COUNTS[fixed])}, expected {nonzero(want)}")
+        u1 = dist.gather_full(mesh, r1.u).cpu()
+        h1 = np.asarray(r1.res_history)
+        del r1
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = dist.run_on_mesh(dfas_rank_program, (2, 2), backend="gloo",
+                               device=DEVICE + ":0",
+                               args=(DFAS_LEVEL, DFAS_FIXED))
+        wall = time.perf_counter() - t0
+        o = out[0]
+        lv4 = dfas_levels("bratu", DFAS_LEVEL, (2, 2))
+        path = f"dist-fas-bratu-{DFAS_LEVEL}-2x2"
+        total = {k: sum(r["counts"][k] for r in out) for k in o["counts"]}
+        PATH_COUNTS[path] = total
+        want = {k: 4 * v for k, v in dfas_counts(
+            "fas_", lv4.num_sharded, DFAS_FIXED).items()}
+        check(total == want, f"{path} launches {nonzero(total)}, expected "
+                             f"{nonzero(want)}")
+        for r in out[1:]:
+            check(torch.equal(r["hist"], o["hist"]),
+                  f"{path}: the ranks disagree")
+        h4 = np.asarray(o["hist"])
+        ua, ub = o["u"][phys].numpy(), u1[phys].numpy()
+        hrel = float(np.max(np.abs(h4 / h1 - 1)))
+        close = np.allclose(ua, ub, rtol=1e-5, atol=1e-6)
+        bitwise = bool(np.array_equal(ua, ub))
+        print(f"[dist-fas] 2 x 2 gloo mesh on one card, solve_bratu("
+              f"{DFAS_LEVEL}), {DFAS_FIXED} cycles (levels {lv4.sizes[:2]}..."
+              f", {lv4.num_sharded} sharded; the (1, 1) run "
+              f"{lv1.sizes[:2]}...): history rel diff to (1, 1) {hrel:.3e} "
+              f"(history {', '.join(f'{x:.4e}' for x in h4)}); u within "
+              f"rtol 1e-5 / atol 1e-6 of the (1, 1) run: {close}, bitwise "
+              f"equal: {bitwise} (max |du| {float(np.abs(ua - ub).max()):.3e}"
+              f"); seconds per rank {[round(r['seconds'], 3) for r in out]}, "
+              f"{wall:.3f} s with the ranks' start (not a multi-card time: "
+              f"the ranks share one card and stage every strip through "
+              f"host memory)  ({card})")
+        check(hrel <= 1e-4 and close, f"{path} against (1, 1): history rel "
+              f"diff {hrel}, u close {close}")
+        summary[path] = dict(history_rel_diff=hrel, u_bitwise=bitwise,
+                             seconds=o["seconds"], wall=wall)
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def dfas_work(prefix, R, C, origin, n, sweeps):
+    """(bytes, operations) of a family's extended-block FAS kernels, by
+    fas_work's rule: u over its reach (the live cells for K2f-local, which
+    masks u + P e_c first), b over the live cells, e_c over the coarse
+    reach, every output in full (u', and uc0 and bc for K1f-local); the
+    operations count the live cells (a quarter of them for the coarse
+    right-hand side)."""
+    cells, live, reach, creach = dist_cells(R, C, origin, n)
+    ccells = (R // 2 + 16) * (C // 2 + 256)
+    key = (prefix, "")
+    sweep = sweeps * FSTEP[key] * live
+    k2 = 4 * (2 * live + creach + cells)
+    return {
+        prefix + "smooth_restrict_ext": (
+            4 * (reach + live + cells + 2 * ccells),
+            sweep + FRES[key] * live + (FW + FCAP[key]) * (live // 4)),
+        prefix + "prolong_smooth_ext": (k2, sweep + PRO * live),
+        prefix + "prolong_smooth_ext_resnorm": (
+            k2 + 4, sweep + (PRO + FRES[key] + 2) * live)}
+
+
+def dist_fas_times(card, times, work):
+    """Each extended-block FAS kernel at the (1, 1) level-12 finest block
+    (origin (-16, -256)), 2 sweeps, beside its plain version.  No PyTorch
+    call smooths nonlinearly: no library time."""
+    from tpu_multigrid_torch.kernels import local as KL
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(52)
+    R, C, n = dfas_blocks()[0]
+    origin = (-16, -256)
+    u = 0.1 * torch.randn((R, C), generator=gen, device=DEVICE)
+    b = torch.randn((R, C), generator=gen, device=DEVICE)
+    ec = 0.05 * torch.randn(KL.coarse_shape(R, C), generator=gen,
+                            device=DEVICE)
+    for family in ("bratu", "quadratic"):
+        prefix = fas_nl(family)[0]
+        work.update(dfas_work(prefix, R, C, origin, n, 2))
+        for name, (kern, plain) in dfas_cases(family, u, b, ec, origin, n,
+                                              2).items():
+            times[name] = (cuda_ms(kern), cuda_ms(plain))
+            k, p = times[name]
+            bms, by = bound(*work[name])
+            print(f"[times] {name:32s} ({R}, {C}): kernel {k:.3f} ms, plain "
+                  f"{p:.3f} ms, bound {bms:.3f} ms ({by})  ({card})")
+    del u, b, ec
+    torch.cuda.empty_cache()
+
+
 # Float32 operations per node, counted from the 3D kernels' sources: a
 # Jacobi step of the 7-point stencil (6 adds, 2 multiplies, 1 add), an RB-GS
 # half-step on the half of the nodes it updates (7 each), the residual (8);
@@ -3594,6 +3988,7 @@ def phase_times(card, prob_var, prob_var3, prob_aniso):
     fas_times(card, times, work)
     periodic_times(card, times, work)
     dist_times(card, times, work)
+    dist_fas_times(card, times, work)
     return times, work, library
 
 
@@ -3863,6 +4258,8 @@ def main():
     record_periodic = phase_periodic_slice()
     phase_dist_kernels(errs)
     record_dist = phase_dist_slice(card, record)
+    phase_dist_fas_kernels(errs)
+    record_dist_fas = phase_dist_fas_slice(card, record_fas)
     times, work, library = phase_times(card, prob_var, prob_var3, prob_aniso)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
@@ -3875,6 +4272,7 @@ def main():
     print(f"[fas] summary: {json.dumps(record_fas)}")
     print(f"[periodic] summary: {json.dumps(record_periodic)}")
     print(f"[dist] summary: {json.dumps(record_dist)}")
+    print(f"[dist-fas] summary: {json.dumps(record_dist_fas)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

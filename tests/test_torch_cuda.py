@@ -1000,3 +1000,120 @@ def test_dist_refinement_kernels_match_plain_bitwise(gen):
             assert localref.comp_add_ext(got, ys)[0] is got[0]
             localref.comp_add_ext_plain(want, ys)
             assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The distributed FAS tier's kernels (kernels/localfas.py) and its mesh route
+# ---------------------------------------------------------------------------
+
+def _dfas_calls(family, u, b, ec, origin, n, sweeps):
+    """[(name, kernel call, plain call)] of a family's K1f-local, K2f-local
+    and K2f-local-resnorm."""
+    from tpu_multigrid_torch.kernels import localfas
+    if family == "bratu":
+        phi = tmg.BratuNonlinearity(4.0)
+        nl, pre = (phi, phi, (1.0 / n) ** 2), "fas_"
+    else:
+        nl, pre = (tmg.QuadraticCoefficient(2.0),), "qfas_"
+    k1 = (u, b, origin, n, sweeps, 2.0 / 3.0) + nl
+    k2 = (u, b, ec, origin, n, sweeps, 2.0 / 3.0) + nl
+    out = [(pre + "smooth_restrict_ext", k1, {})]
+    out += [(pre + "prolong_smooth_ext", k2, dict(want_resnorm=w))
+            for w in (False, True)]
+    return [(name, lambda f=getattr(localfas, name), a=a, kw=kw: f(*a, **kw),
+             lambda f=getattr(localfas, name + "_plain"), a=a, kw=kw:
+             f(*a, **kw)) for name, a, kw in out]
+
+
+@pytest.mark.parametrize("R,C,n", [(544, 1024, 1000), (288, 768, 500)])
+@pytest.mark.parametrize("family", ["bratu", "quadratic"])
+def test_dist_fas_kernels_match_plain_bitwise(gen, R, C, n, family):
+    """K1f-local's (u', uc0, bc), K2f-local and K2f-local-resnorm bitwise
+    against their plain versions over the whole arrays (the owned sum of
+    squares to rtol 1e-5), random ghosts included, 1-3 sweeps, at two
+    2 x 2 shard blocks and their four origins."""
+    from tpu_multigrid_torch.kernels import local
+    lr, lc = R - 32, C - 512
+    u = 0.1 * torch.randn((R, C), generator=gen, device="cuda")
+    b = torch.randn((R, C), generator=gen, device="cuda")
+    ec = 0.05 * torch.randn(local.coarse_shape(R, C), generator=gen,
+                            device="cuda")
+    for origin in [(-16, -256), (lr - 16, -256), (-16, lc - 256),
+                   (lr - 16, lc - 256)]:
+        for sweeps in (1, 2, 3):
+            for name, kern, plain in _dfas_calls(family, u, b, ec, origin,
+                                                 n, sweeps):
+                got, want = kern(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got, want):
+                    if g.dim() == 0:
+                        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+                    else:
+                        assert torch.equal(g, w), (name, origin, sweeps)
+
+
+def test_dist_fas_kernels_refuse_what_they_do_not_take(gen):
+    """A caller's own nonlinearity and a block outside the gate raise on the
+    card; nothing runs plain there."""
+    from tpu_multigrid_torch.kernels import localfas
+    u = torch.zeros((288, 768), device="cuda")
+    cubic = lambda x: x * x * x          # noqa: E731
+    with pytest.raises(ValueError, match="carries only"):
+        localfas.fas_smooth_restrict_ext(u, u, (0, 0), 500, 2, 0.5, cubic,
+                                         cubic, 1e-6)
+    with pytest.raises(ValueError, match="carries only"):
+        localfas.qfas_prolong_smooth_ext(u, u, u, (0, 0), 500, 2, 0.5,
+                                         lambda x: 1.0 + x * x)
+    with pytest.raises(ValueError, match="fas_supported_local"):
+        localfas.qfas_smooth_restrict_ext(u[:280], u[:280], (0, 0), 500, 2,
+                                          0.5, tmg.QuadraticCoefficient(1.0))
+
+
+@pytest.mark.parametrize("level", [8, 9])
+def test_dist_fas_mesh_route_launches(gen, tmp_path, monkeypatch, level):
+    """solve_bratu(level, mesh=..., dist_path="pallas") on a one-rank NCCL
+    group (two sharded levels at level 8, one at level 9): exactly one
+    K1f-local per sharded level and one K2f-local per sharded level but the
+    finest, whose K2f-local-resnorm runs once a cycle; the iterate bitwise
+    equal, and the history within rtol 1e-5 (the norm's sum in another
+    order), to the same solve on the card with the kernels' plain versions
+    in their place; a caller's own phi raises on the card."""
+    import os
+    import torch.distributed as tdist
+    from tpu_multigrid_torch import dist
+    from tpu_multigrid_torch.dist import pallas_cycle
+    from tpu_multigrid_torch.kernels import localfas
+    cfg = tmg.MultigridConfig(finest_level=level, coarsest_level=3)
+    ns = pallas_cycle.pallas_level_sizes(cfg, (1, 1)).num_sharded
+    assert ns == (2 if level == 8 else 1)
+    tdist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp_path, "store"), world_size=1, rank=0)
+    try:
+        mesh = dist.make_grid_mesh((1, 1))
+        kw = dict(lam=4.0, config=cfg, mesh=mesh, dist_path="pallas",
+                  num_cycles=3)
+        kernels.reset_launch_counts()
+        res = tmg.solve_bratu(level, **kw)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        assert counts == {"fas_smooth_restrict_ext": 3 * ns,
+                          "fas_prolong_smooth_ext_resnorm": 3,
+                          **({"fas_prolong_smooth_ext": 3 * (ns - 1)}
+                             if ns > 1 else {})}
+        for name in ("fas_smooth_restrict_ext", "fas_prolong_smooth_ext"):
+            monkeypatch.setattr(localfas, name,
+                                getattr(localfas, name + "_plain"))
+        kernels.reset_launch_counts()
+        plain = tmg.solve_bratu(level, **kw)
+        assert not any(kernels.launch_counts().values())
+        assert torch.equal(res.u, plain.u)
+        torch.testing.assert_close(res.res_history, plain.res_history,
+                                   rtol=1e-5, atol=0)
+        monkeypatch.undo()
+        with pytest.raises(ValueError, match="carries only"):
+            tmg.solve_nonlinear_poisson(level, phi=lambda u: u * u * u,
+                                        dphi=lambda u: 3.0 * u * u,
+                                        config=cfg, mesh=mesh,
+                                        dist_path="pallas", num_cycles=1)
+    finally:
+        tdist.destroy_process_group()

@@ -317,6 +317,30 @@ def test_refined_fused_tier_matches_jax_fused_tier():
     assert len(res.components) == 3
 
 
+def test_refined_prebuilt_must_match_the_layout():
+    """``prebuilt=(levels, hier)`` of another layout (a level-9 build under
+    a level-8 config, another coarsest level, levels and hierarchy of two
+    builds) raises ``ValueError`` naming both layouts; a matching build
+    gives the same solve as none."""
+    mesh = _one_rank()
+    cfg = tmg.MultigridConfig(finest_level=8, coarsest_level=3)
+    kw = dict(num_cycles=1, ts=True, ds_levels=1, replicate_below=128)
+    build = lambda c: PC.build_pallas_poisson(      # noqa: E731
+        c, (1, 1), replicate_below=128, device="cpu")
+    pre9 = build(tmg.MultigridConfig(finest_level=9, coarsest_level=3))
+    pre5 = build(tmg.MultigridConfig(finest_level=8, coarsest_level=5))
+    pre8 = build(cfg)
+    for bad in (pre9, pre5, (pre8[0], pre5[1])):
+        with pytest.raises(ValueError,
+                           match=r"prebuilt.*against \(\(256, 512\)"):
+            dist.refined_sharded_solve_pallas(cfg, mesh, prebuilt=bad, **kw)
+    got, _ = dist.refined_sharded_solve_pallas(cfg, mesh, prebuilt=pre8,
+                                               **kw)
+    want, _ = dist.refined_sharded_solve_pallas(cfg, mesh, **kw)
+    assert torch.equal(got.res_history, want.res_history)
+    assert torch.equal(got.u, want.u)
+
+
 def _ratios(h):
     h = _np(h)
     return h[1:] / h[0]

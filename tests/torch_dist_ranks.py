@@ -1,4 +1,5 @@
-"""Rank programs of tests/test_torch_dist.py, run by ``dist.run_on_mesh``.
+"""Rank programs of tests/test_torch_dist.py and tests/test_torch_dist_fas.py,
+run by ``dist.run_on_mesh``.
 
 This module imports torch and tpu_multigrid_torch only: the spawned ranks
 import it to find their program, and none of them pays for a JAX import.
@@ -77,3 +78,21 @@ def solve_program(mesh, level):
     return out
 
 
+
+
+# The FAS program of tests/test_torch_dist_fas.py: Bratu (lam = 4) at
+# FAS_LEVEL, coarsest level 4, 1 and FAS_CYCLES fixed cycles.
+FAS_LEVEL, FAS_CYCLES, FAS_LAM = 9, 3, 4.0
+
+
+def fas_program(mesh):
+    """The fused FAS tier's Bratu solves on ``mesh``, {cycles: (history,
+    gathered iterate)}, and the level layout."""
+    cfg = tmg.MultigridConfig(finest_level=FAS_LEVEL, coarsest_level=4)
+    phi = tmg.BratuNonlinearity(FAS_LAM)
+    out = {}
+    for cycles in (1, FAS_CYCLES):
+        res, lv = dist.fas_sharded_solve_pallas(cfg, mesh, phi=phi, dphi=phi,
+                                                num_cycles=cycles, tol=None)
+        out[cycles] = (res.res_history, _gathered(mesh, res.u))
+    return out, lv.sizes, lv.num_sharded

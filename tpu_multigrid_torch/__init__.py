@@ -28,7 +28,9 @@ visit kernels, as CUDA kernels (:mod:`tpu_multigrid_torch.kernels`); and
 the distributed fused tier on ``torch.distributed``
 (:mod:`tpu_multigrid_torch.dist`: ``solve_poisson(mesh=...,
 dist_path="pallas")`` and the one-card 16385^2 refinement path) with K0-local
-and the compensated refinement kernels on ghost-extended blocks.  The
+and the compensated refinement kernels on ghost-extended blocks; and its
+nonlinear twin (``fas_sharded_solve_pallas``, behind the 2D FAS doors'
+``mesh=..., dist_path="pallas"``) with K1f-local and K2f-local.  The
 front doors run on the card unless the caller passes ``device``.
 """
 
@@ -47,6 +49,7 @@ from .core.operators import VarStencilOp, VarStencilOp3D
 from .cycles import SolveResult, cycle, fmg, solve_fixed, solve_until_tol
 from .cycles.fas import (fas_cycle, fas_solve_fixed, fas_solve_until_tol,
                          fmg_fas)
+from .dist.fas_pallas import fas_sharded_solve_pallas
 from .problems import (AnisotropicPoissonProblem, Bratu3DProblem,
                        BratuProblem, ConvectionDiffusion3DProblem,
                        Diffusion3DProblem, DiffusionProblem, HelmholtzProblem,
@@ -73,5 +76,5 @@ __all__ = [
     "QuadraticCoefficient", "PointwiseNonlinearOp", "QuasilinearFluxOp",
     "QuasilinearFluxOp3", "fas_cycle", "fas_solve_fixed",
     "fas_solve_until_tol", "fmg_fas", "PeriodicPoissonProblem",
-    "Periodic3DPoissonProblem",
+    "Periodic3DPoissonProblem", "fas_sharded_solve_pallas",
 ]

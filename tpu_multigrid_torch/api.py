@@ -21,9 +21,10 @@ from typing import Callable, Optional, Union
 import torch
 
 from .config import MultigridConfig, default_device
-from .core.nonlinear import CARRIED, kernel_selector
+from .core.nonlinear import CARRIED, BratuNonlinearity, kernel_selector
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
 from .cycles.fas import fas_solve_fixed, fas_solve_until_tol, fmg_fas
+from .dist.fas_pallas import fas_sharded_solve_pallas
 from .problems.anisotropic import AnisotropicPoissonProblem
 from .problems.bratu import (Bratu3DProblem, BratuProblem,
                              NonlinearPoisson3DProblem, NonlinearPoissonProblem)
@@ -607,8 +608,9 @@ def _fas_config(config: Optional[MultigridConfig], finest_level: int,
     if ndim not in (2, 3):
         raise ValueError(f"ndim must be 2 or 3, got {ndim}")
     if dist_path != "jnp":
-        raise NotImplementedError(f"dist_path={dist_path!r} (the distributed "
-                                  "FAS paths) is not ported yet")
+        raise NotImplementedError(f"dist_path={dist_path!r} without mesh= "
+                                  "is not ported (it selects a distributed "
+                                  "FAS path; pass mesh=)")
     if config is None:
         config = MultigridConfig(finest_level=finest_level,
                                  use_kernels=device.type == "cuda" and carried,
@@ -619,6 +621,40 @@ def _fas_config(config: Optional[MultigridConfig], finest_level: int,
         raise ValueError(f"use_kernels=True: the FAS kernels carry only "
                          f"{CARRIED}; a caller's own nonlinearity runs on the "
                          f"plain path (use_kernels=False)")
+    return config
+
+
+def _fas_mesh_config(config: Optional[MultigridConfig], finest_level: int,
+                     mesh, dist_path: str, ndim: int, use_fmg: bool, device,
+                     **defaults) -> MultigridConfig:
+    """A FAS door's config on its ``mesh=`` route (the fused distributed
+    tier, ``dist.fas_sharded_solve_pallas``, in 2D with
+    ``dist_path="pallas"``): the given one at ``finest_level``, or the
+    default schedule with ``defaults``.  Raises for what is not ported and
+    for what the route does not take."""
+    if ndim not in (2, 3):
+        raise ValueError(f"ndim must be 2 or 3, got {ndim}")
+    if dist_path == "jnp":
+        raise NotImplementedError('dist_path="jnp" (the plain shard-local FAS'
+                                  " tier, dist/fas.fas_sharded_solve) is not "
+                                  f'ported yet ({_DIST_QUEUE}); pass '
+                                  'dist_path="pallas"')
+    if dist_path != "pallas":
+        raise ValueError(f'dist_path must be "jnp" or "pallas", got '
+                         f"{dist_path!r}")
+    if ndim == 3:
+        raise NotImplementedError("ndim=3 with mesh= (the GSPMD FAS route) is "
+                                  f"not ported yet ({_DIST_QUEUE})")
+    if use_fmg:
+        raise ValueError("mesh= FAS does not support FMG yet (use the "
+                         "single-device path)")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.device}")
+    if config is None:
+        config = MultigridConfig(finest_level=finest_level, **defaults)
+    config = _level_config(config, finest_level)
+    _check_single_device(config, None)
     return config
 
 
@@ -654,9 +690,25 @@ def solve_nonlinear_poisson(
     ``ValueError``.  ``use_fmg=True`` runs one FMG-FAS pass first.  Default
     forcing: 4 (2D) / 6 (3D).
 
-    Not ported yet (each raises ``NotImplementedError``): ``mesh`` and
-    ``dist_path`` other than ``"jnp"`` (the distributed FAS paths).
+    ``mesh`` (a :class:`tpu_multigrid_torch.dist.GridMesh`, every rank
+    calling) with ``dist_path="pallas"`` solves in 2D on a grid of ranks,
+    on the mesh's device, through K1f-local and K2f-local
+    (``dist.fas_sharded_solve_pallas``): ``result.u`` is this rank's owned
+    block.  On the card that route takes only a carried ``phi``, and with
+    any callable it needs a Jacobi config and no ``use_fmg``
+    (``ValueError``).
+
+    Not ported yet (each raises ``NotImplementedError``): with ``mesh``,
+    ``dist_path="jnp"`` (the default) and ``ndim=3``; ``dist_path`` other
+    than ``"jnp"`` without ``mesh``.
     """
+    if mesh is not None:
+        config = _fas_mesh_config(config, finest_level, mesh, dist_path,
+                                  ndim, use_fmg, device)
+        return fas_sharded_solve_pallas(
+            config, mesh, phi=phi, dphi=dphi,
+            forcing=4.0 if forcing is None else forcing, tol=tol,
+            max_cycles=max_cycles, num_cycles=num_cycles)[0]
     device = default_device(device)
     carried = kernel_selector(phi, dphi) is not None
     config = _fas_config(config, finest_level, device, carried, mesh,
@@ -691,10 +743,18 @@ def solve_bratu(
     (~6.81 on the unit square, ~9.9 on the unit cube with ``ndim=3``).  The
     default config is Jacobi-Newton (2, 2), coarsest level 3 with a dense
     Newton solve, with the K1f/K2f kernels on when the solve runs on the card
-    (the JAX package's default leaves its Pallas kernels off).  ``mesh`` and
-    ``dist_path`` other than ``"jnp"`` raise ``NotImplementedError`` (not
-    ported yet).
+    (the JAX package's default leaves its Pallas kernels off).  ``mesh``
+    with ``dist_path="pallas"`` solves in 2D on a grid of ranks, as
+    :func:`solve_nonlinear_poisson` describes; the rest of ``mesh`` and
+    ``dist_path`` raise ``NotImplementedError`` (not ported yet).
     """
+    if mesh is not None:
+        config = _fas_mesh_config(config, finest_level, mesh, dist_path,
+                                  ndim, use_fmg, device)
+        phi = BratuNonlinearity(lam)
+        return fas_sharded_solve_pallas(
+            config, mesh, phi=phi, dphi=phi, forcing=forcing, tol=tol,
+            max_cycles=max_cycles, num_cycles=num_cycles)[0]
     device = default_device(device)
     config = _fas_config(config, finest_level, device, True, mesh, dist_path,
                          ndim)
@@ -732,9 +792,23 @@ def solve_quasilinear_diffusion(
     config smooths the coarsest level with 40 Picard sweeps
     (``coarse_solver="smooth"``), with the kernels on when the solve runs on
     the card and the coefficient is carried.  Default forcing: 4 (2D) / 6
-    (3D).  ``mesh`` and ``dist_path`` other than ``"jnp"`` raise
-    ``NotImplementedError`` (not ported yet).
+    (3D).  ``mesh`` with ``dist_path="pallas"`` solves in 2D on a grid of
+    ranks, as :func:`solve_nonlinear_poisson` describes (on the card with
+    the carried coefficient only); the rest of ``mesh`` and ``dist_path``
+    raise ``NotImplementedError`` (not ported yet).
     """
+    if mesh is not None:
+        config = _fas_mesh_config(config, finest_level, mesh, dist_path,
+                                  ndim, use_fmg, device,
+                                  coarse_solver="smooth",
+                                  coarse_smooth_sweeps=40)
+        forcing = 4.0 if forcing is None else forcing
+        problem = QuasilinearDiffusionProblem(
+            config, gamma=gamma, a=a, da=da, forcing=forcing,
+            device=mesh.device)
+        return fas_sharded_solve_pallas(
+            config, mesh, a=problem.a, forcing=forcing, tol=tol,
+            max_cycles=max_cycles, num_cycles=num_cycles)[0]
     device = default_device(device)
     carried = a is None or kernel_selector(a) is not None
     config = _fas_config(config, finest_level, device, carried, mesh,

@@ -32,7 +32,8 @@ from .mesh import GridMesh
 from .pallas_cycle import (_ext_origin, _halo_depths, _no_shardable_level,
                            _replicated_cycle, _vcycle_pallas,
                            build_pallas_poisson, gather_owned, owned_view,
-                           refresh_ghosts, rhs_ext, scatter_owned)
+                           pallas_level_sizes, refresh_ghosts, rhs_ext,
+                           scatter_owned)
 from .shard_cycle import ShardedLevels
 
 GR, GC = KL.GR, KL.GC
@@ -132,17 +133,30 @@ def refined_sharded_solve_pallas(config: MultigridConfig, mesh: GridMesh, *,
 
     ``prebuilt=(levels, hier)`` reuses a :func:`.pallas_cycle.
     build_pallas_poisson` result of the same mesh shape and
-    ``replicate_below`` across solves.  The JAX package's ``jit`` and
+    ``replicate_below`` across solves; one whose layout is not this
+    solve's raises ``ValueError``.  The JAX package's ``jit`` and
     ``return_runner`` (a traced program for reuse) have no counterpart
     here: each call runs eagerly."""
     if tol is None and num_cycles is None:
         raise ValueError("refined solve needs tol or num_cycles")
     my, mx = mesh.shape
     cfg = dataclasses.replace(config, cycle="V")
-    levels, hier = prebuilt if prebuilt is not None else \
-        build_pallas_poisson(cfg, mesh.shape,
-                             replicate_below=replicate_below,
-                             device=mesh.device)
+    if prebuilt is not None:
+        levels, hier = prebuilt
+        want = pallas_level_sizes(cfg, mesh.shape,
+                                  replicate_below=replicate_below)
+        got = tuple((op.n, op.S) for op in hier.levels)
+        if levels != want or got != want.sizes:
+            raise ValueError(
+                f"prebuilt=(levels, hier) does not match this solve's layout"
+                f": levels {levels.sizes} ({levels.num_sharded} sharded), "
+                f"hierarchy {got}, against {want.sizes} ({want.num_sharded} "
+                f"sharded) for finest_level={cfg.finest_level} on mesh "
+                f"{mesh.shape} with replicate_below={replicate_below}")
+    else:
+        levels, hier = build_pallas_poisson(cfg, mesh.shape,
+                                            replicate_below=replicate_below,
+                                            device=mesh.device)
     if levels.num_sharded < 1:
         raise _no_shardable_level(mesh, levels, cfg.finest_level,
                                   "a single-device refined solve")

@@ -5,12 +5,13 @@ launches the kernel on CUDA tensors.  Nothing is built when this package is
 imported: ``_build.lib()`` compiles ``csrc/*.cu`` at the first launch.
 """
 
-from . import (compres, fas, fas3d, lines, local, localref, stencil,
-               stencil3d, transfer, transfer3d, varstencil, vartransfer,
-               vartransfer3d)
+from . import (compres, fas, fas3d, lines, local, localfas, localref,
+               stencil, stencil3d, transfer, transfer3d, varstencil,
+               vartransfer, vartransfer3d)
 
 _MODULES = (transfer, stencil, compres, varstencil, vartransfer, stencil3d,
-            transfer3d, vartransfer3d, lines, fas, fas3d, local, localref)
+            transfer3d, vartransfer3d, lines, fas, fas3d, local, localref,
+            localfas)
 
 
 def launch_counts() -> dict:

@@ -115,6 +115,14 @@ _SIGNATURES = {
     # u, b, u_out, r_out, R, C, o0, o1, n, steps, rbgs, weights, count,
     # stream
     "tmt_streamed_ext": ([_P] * 4 + [_I] * 7 + [_P, _I, _P], _I),
+    # u, b, u_out, uc, bc, R, C, o0, o1, n, steps, kind, scalar, omega, h2,
+    # diag, stream
+    "tmt_fas_smooth_restrict_ext": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P],
+                                    _I),
+    # u, b, ec, u_out, partials, out_sum, R, C, o0, o1, n, steps, kind,
+    # scalar, omega, h2, diag, stream
+    "tmt_fas_prolong_smooth_ext": ([_P] * 6 + [_I] * 7 + [_F] * 4 + [_P],
+                                   _I),
     # b, u_hi, u_mid (or null), u_lo, r, R, C, o0, o1, n, stream
     "tmt_comp_residual_ext": ([_P] * 5 + [_I] * 5 + [_P], _I),
     # ec_hi, ec_lo, p_hi, p_lo, R, C, o0, o1, nf, stream

@@ -3,7 +3,7 @@
 // level visit, for Hopper (sm_90a), on the pointwise family N(u) = A u +
 // h^2 phi(u) (5-point A, Jacobi-Newton) and the quasilinear flux family
 // N(u) = sum_e a(mid_e)(u - u_e) (Picard-Jacobi), with the nonlinearities
-// of fasnl.cuh.
+// of fasnl.cuh (the operator policies of fasop2.cuh).
 //
 // Replaces the Pallas TPU kernels tpu_multigrid/kernels/fas.py::
 // _fas_smooth_restrict (K1f) and ::_fas_prolong_smooth (K2f), behind both
@@ -40,78 +40,11 @@
 // are K1/K2's (levelvisit.cuh).  Built with -fmad=false: u', uc0 and bc
 // match the plain versions bitwise wherever torch's exp and expf agree.
 
-#include "fasnl.cuh"
+#include "fasop2.cuh"
 #include "levelvisit.cuh"
 #include "window.cuh"
 
 namespace {
-
-// The pointwise family with phi = -lam e^u: the Jacobi-Newton step, the
-// residual, and N_c at a coarse node (coarse neighbours outside the coarse
-// interior read 0).
-struct BratuOp2 {
-  BratuPhi phi;
-  float omega, h2, h2c, diag;
-
-  __device__ __forceinline__ float step(const float* v, const float* bw,
-                                        int k, int w) const {
-    const float x = v[k];
-    const float pv = phi(x);
-    const float ap = (diag * x - nbr(v, k, w)) + h2 * pv;
-    const float denom = diag + h2 * pv;
-    return x + (omega * (bw[k] - ap)) / denom;
-  }
-  __device__ __forceinline__ float residual(const float* v, const float* bw,
-                                            int k, int w) const {
-    const float x = v[k];
-    return bw[k] - ((diag * x - nbr(v, k, w)) + h2 * phi(x));
-  }
-  // c(di, dj): uc0 at coarse (I + di, J + dj), v at fine k + 2 (di w + dj).
-  template <typename C>
-  __device__ __forceinline__ float capply(float x, const C& c) const {
-    const float nb = ((c(-1, 0) + c(1, 0)) + c(0, -1)) + c(0, 1);
-    return (diag * x - nb) + h2c * phi(x);
-  }
-};
-
-// The quasilinear flux family with a(u) = 1 + gamma u^2: the Picard-Jacobi
-// step, the residual, and the flux form on uc0 (h-independent).
-struct QuadraticOp2 {
-  QuadraticCoef a;
-  float omega;
-
-  template <typename C>
-  __device__ __forceinline__ void flux_diag(float x, const C& c, float& flux,
-                                            float& dg) const {
-    flux = 0.0f;
-    dg = 0.0f;
-    edge_term(a, x, c(0, 1), flux, dg);
-    edge_term(a, x, c(0, -1), flux, dg);
-    edge_term(a, x, c(1, 0), flux, dg);
-    edge_term(a, x, c(-1, 0), flux, dg);
-  }
-  __device__ __forceinline__ float step(const float* v, const float* bw,
-                                        int k, int w) const {
-    float flux, dg;
-    flux_diag(v[k], [&](int di, int dj) { return v[k + di * w + dj]; }, flux,
-              dg);
-    const float safe = dg > 0.0f ? dg : 1.0f;
-    return v[k] + (omega * (bw[k] - flux)) / safe;
-  }
-  __device__ __forceinline__ float residual(const float* v, const float* bw,
-                                            int k, int w) const {
-    float flux, dg;
-    flux_diag(v[k], [&](int di, int dj) { return v[k + di * w + dj]; }, flux,
-              dg);
-    return bw[k] - flux;
-  }
-  template <typename C>
-  __device__ __forceinline__ float capply(float x, const C& c) const {
-    float flux, dg;
-    flux_diag(x, c, flux, dg);
-    return flux;
-  }
-};
 
 template <typename Op>
 __global__ void __launch_bounds__(kThreads)
@@ -155,8 +88,8 @@ fas_smooth_restrict_kernel(const float* __restrict__ u,
   load_window(bw, b, S, r0, c0, w);
   __syncthreads();
 
-  const float* v = smooth_window_op(buf_a, buf_b, bw, w, r0, c0, n, steps,
-                                    op);
+  const float* v = smooth_window_op(buf_a, buf_b, bw, w, r0, c0,
+                                    SquareGeom{0, n}, steps, op);
   float* r = (v == buf_a) ? buf_b : buf_a;
 
   for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
@@ -240,8 +173,8 @@ fas_prolong_smooth_kernel(const float* __restrict__ u,
   }
   __syncthreads();
 
-  const float* v = smooth_window_op(buf_a, buf_b, bw, w, r0, c0, n, steps,
-                                    op);
+  const float* v = smooth_window_op(buf_a, buf_b, bw, w, r0, c0,
+                                    SquareGeom{0, n}, steps, op);
 
   float acc = 0.0f;
   for (int ti = threadIdx.y; ti < kTile; ti += blockDim.y) {
@@ -301,14 +234,6 @@ cudaError_t launch_k2f(const float* u, const float* b, const float* ec,
   sum_partials_kernel<<<1, dim3(kThreadsX, kThreadsY), 0, st>>>(
       partials, tiles * tiles, out_sum);
   return cudaGetLastError();
-}
-
-BratuOp2 bratu_op2(const FasScalars& s) {
-  return BratuOp2{BratuPhi{-s.scalar}, s.omega, s.h2, s.h2c, s.diag};
-}
-
-QuadraticOp2 quadratic_op2(const FasScalars& s) {
-  return QuadraticOp2{QuadraticCoef{s.scalar}, s.omega};
 }
 
 }  // namespace

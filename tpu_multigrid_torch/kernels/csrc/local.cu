@@ -55,23 +55,11 @@
 // with row3 = (r[i-1] + 2 r[i]) + r[i+1], and the odd-odd prolongation is
 // 0.5 * (0.5 * (c + c_down) + 0.5 * (c_right + c_down_right)).
 
-#include "ext.cuh"
+#include "extvisit.cuh"
 #include "levelvisit.cuh"
 #include "window.cuh"
 
 namespace {
-
-__device__ __forceinline__ int floor_half(int x) {
-  return x >= 0 ? x / 2 : -((1 - x) / 2);
-}
-
-// The full-weighting aggregate at window index k, in _fw_aggregate's order.
-__device__ __forceinline__ float fw_aggregate(const float* r, int k, int w) {
-  auto row3 = [&](int c) {
-    return (r[c - w] + 2.0f * r[c]) + r[c + w];
-  };
-  return 0.25f * ((row3(k - 1) + 2.0f * row3(k)) + row3(k + 1));
-}
 
 __global__ void __launch_bounds__(kThreads)
 smooth_restrict_ext_kernel(const float* __restrict__ u,
@@ -138,32 +126,6 @@ smooth_restrict_ext_kernel(const float* __restrict__ u,
       rc[(size_t)(gi / 2 + kGR / 2) * Cc + gj / 2 + kGC / 2] = val;
     }
   }
-}
-
-// Zeroes the cells of the (Rc, Cc) coarse block that no fine cell restricts
-// to: the GR/2 rows above and below the restricted rows, and the GC/2
-// columns left and right of the restricted columns.  One thread per cell.
-__global__ void __launch_bounds__(kThreads)
-zero_frame_kernel(float* __restrict__ rc, int Rc, int Cc) {
-  const int edge_rows = kGR / 2;
-  const int edge_cols = kGC / 2;
-  const long long band = 2LL * edge_rows * Cc;
-  const long long total = band + (long long)(Rc - 2 * edge_rows) * 2 *
-                                     edge_cols;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  int i, j;
-  if (t < band) {
-    const int row = static_cast<int>(t / Cc);
-    i = row < edge_rows ? row : Rc - 2 * edge_rows + row;
-    j = static_cast<int>(t % Cc);
-  } else {
-    const long long q = t - band;
-    const int col = static_cast<int>(q % (2 * edge_cols));
-    i = edge_rows + static_cast<int>(q / (2 * edge_cols));
-    j = col < edge_cols ? col : Cc - 2 * edge_cols + col;
-  }
-  rc[(size_t)i * Cc + j] = 0.0f;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -264,10 +226,6 @@ streamed_ext_kernel(const float* __restrict__ u, const float* __restrict__ b,
   }
 }
 
-dim3 tile_grid(int R, int C) {
-  return dim3((C + kTile - 1) / kTile, (R + kTile - 1) / kTile);
-}
-
 }  // namespace
 
 extern "C" {
@@ -296,13 +254,7 @@ int tmt_smooth_restrict_ext(const void* u, const void* b, void* u_out,
       wt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int Rc = R / 2 + kGR;
-  const int Cc = C / 2 + kGC;
-  const long long frame = 2LL * (kGR / 2) * Cc + (long long)R / 2 * kGC;
-  zero_frame_kernel<<<static_cast<unsigned>((frame + kThreads - 1) /
-                                            kThreads),
-                      kThreads, 0, st>>>(static_cast<float*>(rc), Rc, Cc);
-  return cudaGetLastError();
+  return zero_frame(static_cast<float*>(rc), R, C, st);
 }
 
 // ec: (R/2 + GR, C/2 + GC).  partials: one float per 64x64 tile of (R, C),

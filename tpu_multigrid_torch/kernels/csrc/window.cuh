@@ -14,7 +14,7 @@
 // says where the array ends, which cells are live unknowns and which colour
 // a cell has: SquareGeom is the padded (S, S) Dirichlet level, ExtGeom a
 // ghost-extended (R, C) block whose masks are offset by its global origin
-// (local.cu).
+// (local.cu, localfas.cu).
 
 #pragma once
 
@@ -178,15 +178,16 @@ __device__ float* smooth_window(float* v, float* spare, const float* bw,
 
 // Runs `steps` steps of a pointwise operator `op` on the window, each from
 // the state before it into the other buffer, and returns the buffer that
-// holds the result (the other one is free): op.step(v, bw, k, w) at
-// interior nodes, 0 at the other inner cells.  The outermost ring has no
-// neighbours and keeps its value: it is invalid after the first step.  The
-// FAS kernels (fas.cu) run their nonlinear Jacobi-Newton and Picard-Jacobi
-// steps here.
-template <typename Op>
+// holds the result (the other one is free): op.step(v, bw, k, w) at the
+// geometry's live cells, 0 at the other inner cells.  The outermost ring has
+// no neighbours and keeps its value: it is invalid after the first step.
+// The FAS kernels run their nonlinear Jacobi-Newton and Picard-Jacobi steps
+// here, on the padded level (fas.cu) and on ghost-extended blocks
+// (localfas.cu).
+template <typename Op, typename Geom>
 __device__ float* smooth_window_op(float* v, float* spare, const float* bw,
-                                   int w, int r0, int c0, int n, int steps,
-                                   const Op& op) {
+                                   int w, int r0, int c0, const Geom& g,
+                                   int steps, const Op& op) {
   for (int s = 0; s < steps; ++s) {
     for (int li = threadIdx.y; li < w; li += blockDim.y) {
       const int gi = r0 + li;
@@ -195,7 +196,7 @@ __device__ float* smooth_window_op(float* v, float* spare, const float* bw,
         const int k = li * w + lj;
         float out = v[k];
         if (li > 0 && li < w - 1 && lj > 0 && lj < w - 1) {
-          out = is_interior(gi, gj, n) ? op.step(v, bw, k, w) : 0.0f;
+          out = g.live(gi, gj) ? op.step(v, bw, k, w) : 0.0f;
         }
         spare[k] = out;
       }

@@ -48,14 +48,14 @@ def fas_supported(Sf: int, Sc: int, steps: int, dtype) -> bool:
     return dtype == torch.float32 and _t.supported(Sf, Sc, steps, dtype)
 
 
-def selector(entry, *nl):
+def selector(entry, *nl, plain: str = "use_kernels=False"):
     """(kind, scalar) of a carried nonlinearity (``nl`` is (phi, dphi) or
-    (a,)) for a C entry; a caller's own callable raises ``ValueError``."""
+    (a,)) for a C entry; a caller's own callable raises ``ValueError``,
+    which names ``plain``, how the caller reaches the plain path."""
     sel = kernel_selector(*nl)
     if sel is None:
         raise ValueError(f"{entry}: the CUDA kernel carries only {CARRIED}; "
-                         f"got {nl!r} (run it on the plain path: "
-                         "use_kernels=False)")
+                         f"got {nl!r} (run it on the plain path: {plain})")
     return sel
 
 

@@ -124,18 +124,37 @@ def smooth_restrict_ext_plain(u, b, origin, n: int, sweeps: int,
     R, C = u.shape
     live, color = _masks(R, C, origin, n, u.device)
     v = _smooth_plain(u, b, live, color, sweeps, smoother, omega)
-    p = F.pad(_residual_plain(v, b, live), (1, 1, 1, 1))
+    cmask = coarse_mask(R, C, origin, n, u.device)
+    return v, into_coarse(torch.where(cmask, fw_even(_residual_plain(
+        v, b, live)), 0.0))
+
+
+def coarse_mask(R: int, C: int, origin, n: int, device):
+    """The coarse interior (global coordinates ``origin // 2 + (I, J)`` in
+    ``1..n/2-1``) of the (R/2, C/2) cells an (R, C) block restricts to."""
+    hi = torch.arange(R // 2, device=device) + int(origin[0]) // 2
+    hj = torch.arange(C // 2, device=device) + int(origin[1]) // 2
+    nc = n // 2
+    return (((hi >= 1) & (hi <= nc - 1))[:, None]
+            & ((hj >= 1) & (hj <= nc - 1))[None, :])
+
+
+def fw_even(r):
+    """The full-weighting aggregate of r at its even cells, in the TPU
+    kernel's order (``_fw_aggregate``), cells outside reading 0."""
+    p = F.pad(r, (1, 1, 1, 1))
     row3 = (p[:-2] + 2.0 * p[1:-1]) + p[2:]
     agg = 0.25 * ((row3[:, :-2] + 2.0 * row3[:, 1:-1]) + row3[:, 2:])
-    hi = torch.arange(R // 2, device=u.device) + int(origin[0]) // 2
-    hj = torch.arange(C // 2, device=u.device) + int(origin[1]) // 2
-    nc = n // 2
-    cmask = (((hi >= 1) & (hi <= nc - 1))[:, None]
-             & ((hj >= 1) & (hj <= nc - 1))[None, :])
-    rc = u.new_zeros(coarse_shape(R, C))
-    rc[GR // 2:GR // 2 + R // 2, GC // 2:GC // 2 + C // 2] = torch.where(
-        cmask, agg[0::2, 0::2], 0.0)
-    return v, rc
+    return agg[0::2, 0::2]
+
+
+def into_coarse(inner):
+    """The (R/2 + GR, C/2 + GC) coarse block holding ``inner`` (R/2, C/2)
+    at the cells the fine block restricts to, zero in its frame."""
+    r, c = inner.shape
+    out = inner.new_zeros(coarse_shape(2 * r, 2 * c))
+    out[GR // 2:GR // 2 + r, GC // 2:GC // 2 + c] = inner
+    return out
 
 
 def _prolonged(ec, R: int, C: int):
