@@ -132,6 +132,25 @@ Phases, each printing its own lines:
    solve_bratu(12) on a 2 x 2 gloo mesh of four spawned ranks sharing the
    card against the (1, 1) run, 4 fixed cycles (histories rtol 1e-4,
    iterates rtol 1e-5, atol 1e-6).
+4m. The distributed fused 3D tier (dist.pallas_cycle3): K1_3-ext,
+   K2_3-local and K2_3-local-resnorm, and their var forms on 3, 4 and 6
+   planes, bitwise against their plain versions over the whole arrays (the
+   resnorm's sum to 1e-4), random u, b, ec and coefficients, ghosts
+   included, at the (1, 1) level-9 block (576, 576, 640) / (304, 304, 384)
+   and a 2 x 2 level-8 shard block (192, 192, 384) / (112, 112, 256), four
+   origins, Chebyshev (3, 2), RB-GS (1, 1) and (5, 5) (K1 split into two
+   launches); a block outside the gate refused on the card.  Then, on a
+   one-rank NCCL group, each with exact launch counts: sharded_solve_pallas3
+   and sharded_solve_pallas_var3 (phase 4g's coefficient) at 513^3, the var
+   solve with phase 4g's shift at 257^3 and sharded_solve_pallas_conv3 with
+   phase 4g's winds at 257^3, each until tol 1e-5 beside the single-device
+   kernel route (iterations within 1; seconds with set-up, host build
+   seconds, peak memory) and 2 fixed cycles on the same build (u within
+   1e-4 of max|u| of the single-device route's solve_fixed); ms per fused
+   3D V-cycle at 513^3 beside the single-device kernel V-cycle, and its
+   replicated tail's share; Poisson at level 8 on a 2 x 2 gloo mesh of four
+   spawned ranks sharing the card against the (1, 1) run, 4 fixed cycles
+   (histories rtol 1e-4, iterates rtol 1e-5, atol 1e-6).
 5. Times: ms per V-cycle and DOF/s at 8193^2, at 4097^2 (var, anisotropic,
    FAS Bratu and quasilinear), at 513^3 (3D, 3D var, FAS Bratu) and the
    periodic 8192^2 torus on both paths, one ts iteration at 16385^2 on both
@@ -139,7 +158,8 @@ Phases, each printing its own lines:
    S = 8448, the var, zebra and FAS kernels at 4352, the 3D ones at (528,
    528, 640), K1-local and K2-local at (8224, 8704), the distributed
    refinement's at (17440, 17920), K1f-local and K2f-local at (4384,
-   4864), the others at 16640),
+   4864), the 3D extended-block kernels at (576, 576, 640), the others at
+   16640),
    with CUDA events (median of 7 after warm-up), and the one PyTorch call
    that computes the same function where there is one.
 
@@ -250,6 +270,12 @@ REPLACES = {
     "qfas_smooth_restrict_ext": f"{_LF}:52",
     "qfas_prolong_smooth_ext": f"{_LF}:182",
     "qfas_prolong_smooth_ext_resnorm": f"{_LF}:182",
+    "smooth_restrict_ext3": f"{_T3}:279",
+    "prolong_smooth_ext3": f"{_T3}:770",
+    "prolong_smooth_ext3_resnorm": f"{_T3}:770",
+    "var_smooth_restrict_ext3": f"{_VT3}:214",
+    "var_prolong_smooth_ext3": f"{_VT3}:596",
+    "var_prolong_smooth_ext3_resnorm": f"{_VT3}:596",
 }
 _CSRC = "tpu_multigrid_torch/kernels/csrc/"
 SOURCES = {name: _CSRC + ("compres.cu" if name in ("ds_residual",
@@ -1418,12 +1444,12 @@ def conv3_config(use_kernels):
 
 class HostSetup:
     """Times every call of a module's hierarchy builder while in use (the
-    host part of a front door's set-up)."""
+    host part of a front door's set-up), and keeps the last one's result."""
 
     def __init__(self, module, name):
         import importlib
         self.module = importlib.import_module(module)
-        self.name, self.seconds = name, 0.0
+        self.name, self.seconds, self.result = name, 0.0, None
 
     def __enter__(self):
         fn = self.fn = getattr(self.module, self.name)
@@ -1431,7 +1457,8 @@ class HostSetup:
         def timed(*a, **kw):
             t0 = time.perf_counter()
             try:
-                return fn(*a, **kw)
+                self.result = fn(*a, **kw)
+                return self.result
             finally:
                 self.seconds += time.perf_counter() - t0
         setattr(self.module, self.name, timed)
@@ -3594,6 +3621,446 @@ def dist_fas_times(card, times, work):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 4m. The distributed fused 3D tier (dist/pallas_cycle3.py)
+# ---------------------------------------------------------------------------
+
+DIST3_LEVEL = 9
+DIST3_SHIFT_LEVEL = 8
+DIST3_MESH_LEVEL = 8
+DIST3_FIXED = 4
+DIST3_TOL = 1e-5
+# The blocks the kernels are held at: the (1, 1) level-9 finest block and
+# its coarse block, and a 2 x 2 level-8 shard block (lz = ly = 160).
+DIST3_BLOCKS = [((576, 576, 640), (304, 304, 384), 512),
+                ((192, 192, 384), (112, 112, 256), 256)]
+# (K1 smoother, omega, sweeps), (K2 ...): Chebyshev (3, 2), RB-GS (1, 1),
+# and RB-GS (5, 5), whose K1 (12 window layers) splits into two launches.
+DIST3_SMOOTHERS = [(("jacobi", 3), ("jacobi", 2)), (("rbgs", 1), ("rbgs", 1)),
+                   (("rbgs", 5), ("rbgs", 5))]
+DIST3_ENTRIES = ("smooth_restrict_ext3", "prolong_smooth_ext3",
+                 "prolong_smooth_ext3_resnorm")
+
+
+def dist3_origins(shape):
+    """The global (oz, oy) of the four blocks of a 2 x 2 mesh (one for the
+    (1, 1) block)."""
+    lz, ly = shape[0] - 32, shape[1] - 32
+    if lz >= 512:
+        return [(-16, -16)]
+    return [(-16, -16), (lz - 16, -16), (-16, ly - 16), (lz - 16, ly - 16)]
+
+
+def dist3_omega(sm, sweeps):
+    from tpu_multigrid_torch.core import ops
+    return ops.chebyshev_omegas(sweeps, 0.4) if sm == "jacobi" else 1.0
+
+
+def dist3_cases(u, b, ec, coef, origin, n, k1, k2):
+    """{entry: (kernel call, plain call)} of K1_3-ext, K2_3-local and
+    K2_3-local-resnorm, or their var forms on ``coef``; K1 with smoother
+    ``k1`` = (name, sweeps), K2 with ``k2``."""
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    from tpu_multigrid_torch.kernels import vartransfer3d as V3
+    mod, pre = (T3, "") if coef is None else (V3, "var_")
+    cf = () if coef is None else (coef,)
+    (s1, w1), (s2, w2) = k1, k2
+    a1 = (u, b) + cf + (origin, n, tuple(ec.shape), w1, s1,
+                        dist3_omega(s1, w1))
+    a2 = (u, b, ec) + cf + (origin, n, w2, s2, dist3_omega(s2, w2))
+    cases = {}
+    for name in DIST3_ENTRIES:
+        fn = pre + name.replace("_resnorm", "")
+        args, kw = (a1, {}) if "restrict" in name else (
+            a2, dict(want_resnorm=name.endswith("_resnorm")))
+        cases[pre + name] = (
+            lambda f=getattr(mod, fn), a=args, kw=kw: f(*a, **kw),
+            lambda f=getattr(mod, fn + "_plain"), a=args, kw=kw: f(*a, **kw))
+    return cases
+
+
+def phase_dist3_kernels(errs):
+    """K1_3-ext, K2_3-local and K2_3-local-resnorm, and their var forms on
+    3, 4 and 6 planes, bitwise against their plain versions over the whole
+    arrays (the owned resnorm sums to 1e-4), random u, b, ec and
+    coefficients, ghosts included, at the (1, 1) level-9 block and a 2 x 2
+    level-8 shard block, four origins, Chebyshev (3, 2), RB-GS (1, 1) and
+    RB-GS (5, 5) (K1 split into two launches); then a block outside the gate
+    refused on the card."""
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(61)
+    for shape, shape_c, n in DIST3_BLOCKS:
+        u, b = (torch.randn(shape, generator=gen, device=DEVICE)
+                for _ in range(2))
+        ec = torch.randn(shape_c, generator=gen, device=DEVICE)
+        rel = 0.0
+        for nplanes in (0, 3, 4, 6):
+            coef = None if not nplanes else 0.5 + torch.rand(
+                (nplanes,) + shape, generator=gen, device=DEVICE)
+            for origin in dist3_origins(shape):
+                for k1, k2 in DIST3_SMOOTHERS:
+                    rel = max(rel, check_fas(errs, dist3_cases(
+                        u, b, ec, coef, origin, n, k1, k2)))
+            del coef
+            torch.cuda.empty_cache()
+        print(f"[dist3-kernels] {shape} -> {shape_c}, n={n}, origins "
+              f"{dist3_origins(shape)}, Chebyshev (3, 2), RB-GS (1, 1) and "
+              f"(5, 5): K1_3-ext (u', the whole coarse block), K2_3-local, "
+              f"K2_3-local-resnorm and their var forms on 3, 4 and 6 planes "
+              f"bitwise equal over the whole arrays; resnorm sum rel "
+              f"{rel:.3g}")
+        del u, b, ec
+        torch.cuda.empty_cache()
+    u = torch.zeros((192, 184, 384), device=DEVICE)
+    try:
+        T3.smooth_restrict_ext3(u, u, (-16, -16), 256, (112, 108, 256), 1)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "a block outside supported_local3 was taken on the card")
+    print("[dist3-kernels] a block outside supported_local3 raises "
+          "ValueError on the card")
+    torch.cuda.synchronize()
+
+
+def dist3_counts(pre, num_sharded, cycles):
+    """Launches of ``cycles`` fused 3D cycles: K1-ext at every sharded
+    level, K2-local at every one but the finest, whose K2 carries the
+    norm."""
+    return expect(**{pre + "smooth_restrict_ext3": cycles * num_sharded,
+                     pre + "prolong_smooth_ext3": cycles * (num_sharded - 1),
+                     pre + "prolong_smooth_ext3_resnorm": cycles})
+
+
+def dist3_solvers():
+    """(tag, solver, keyword arguments, single-device problem class and its
+    keyword arguments, level, config, entry prefix, host builder) of the
+    four 3D solves: Poisson and phase 4g's coefficient at 513^3, with
+    phase 4g's shift at 257^3, phase 4g's winds at 257^3."""
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import dist
+    coef = dict(coefficient=var3_coefficient)
+    shift = dict(coefficient=var3_coefficient, shift=var3_shift)
+    winds = dict(eps=0.01, **WINDS3)
+    return [
+        ("dist3-poisson-9", dist.sharded_solve_pallas3, {},
+         tmg.Poisson3DProblem, {}, DIST3_LEVEL, config3(True, DIST3_LEVEL),
+         "", "build_pallas_poisson3"),
+        ("dist3-var-9", dist.sharded_solve_pallas_var3, coef,
+         tmg.Diffusion3DProblem, coef, DIST3_LEVEL,
+         var3_config(True, DIST3_LEVEL), "var_", "build_pallas_diffusion3"),
+        ("dist3-shift-8", dist.sharded_solve_pallas_var3, shift,
+         tmg.Diffusion3DProblem, shift, DIST3_SHIFT_LEVEL,
+         var3_config(True, DIST3_SHIFT_LEVEL), "var_",
+         "build_pallas_diffusion3"),
+        ("dist3-conv-8", dist.sharded_solve_pallas_conv3, winds,
+         tmg.ConvectionDiffusion3DProblem, winds, CONV3_LEVEL,
+         conv3_config(True), "var_", "build_pallas_convection3")]
+
+
+def dist3_single(cls, kw, cfg):
+    """The single-device kernel route's problem at the front door's padded
+    layout."""
+    return cls(cfg, align=16, min_pad_level=0, lane_align=128,
+               device=DEVICE, **kw)
+
+
+def dist3_cycle_ms(mesh, cfg, levels, hier, coefs):
+    """(ms of one fused 3D V-cycle with its norm from a zero guess, ms of
+    its replicated plain tail alone), CUDA events, median of 7; the tail's
+    right-hand side is the constant 6 h^2 on its first level."""
+    import dataclasses as dc
+    from tpu_multigrid_torch.cycles import _coarsest_solve
+    from tpu_multigrid_torch.dist import pallas_cycle3 as P3
+    from tpu_multigrid_torch.dist.shard_cycle import _replicated_cycle
+    n0, S0, Sx0 = levels.sizes[0]
+    be = P3.rhs_ext3(mesh, n0, S0, S0, Sx0, 6.0)
+    ue = torch.zeros_like(be)
+    ms = cuda_ms(lambda: P3._vcycle_pallas3(mesh, levels, hier, cfg, 0, ue,
+                                            be, want_norm=True, coefs=coefs))
+    ns = levels.num_sharded
+    n, S, Sx = levels.sizes[ns]
+    bc = torch.zeros((S, S, Sx), device=DEVICE)
+    bc[1:n, 1:n, 1:n] = 6.0 / n ** 2
+    uc = torch.zeros_like(bc)
+    plain = dc.replace(cfg, use_kernels=False)
+    if ns == len(levels.sizes) - 1:
+        tail_ms = cuda_ms(lambda: _coarsest_solve(hier, plain, uc, bc))
+    else:
+        tail_ms = cuda_ms(lambda: _replicated_cycle(hier, plain, ns, uc, bc))
+    del be, ue, bc, uc
+    return ms, tail_ms
+
+
+def dist3_rank_program(mesh, level, cycles):
+    """A rank of the 2 x 2 mesh: the Poisson solve, ``cycles`` fixed cycles,
+    with its launch counts and seconds; rank 0 also returns the gathered
+    iterate."""
+    from tpu_multigrid_torch import dist, kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, lv = dist.sharded_solve_pallas3(config3(True, level), mesh,
+                                         num_cycles=cycles, tol=0.0)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    u = dist.gather_full(mesh, res.u.contiguous()).cpu()
+    return dict(hist=res.res_history, counts=counts, seconds=secs,
+                sizes=lv.sizes, num_sharded=lv.num_sharded,
+                u=u if mesh.rank == 0 else None)
+
+
+def phase_dist3_slice(card, prob_var3):
+    """The three 3D solvers on a one-rank NCCL group at full width beside
+    the single-device kernel route (phase 4g's 513^3 problem for the var
+    solve), and Poisson on a 2 x 2 gloo mesh sharing the card; each path
+    with launch counts set to 0 just before it and checked exactly after."""
+    import os
+    import tempfile
+    import torch.distributed as tdist
+    import tpu_multigrid_torch as tmg
+    from tpu_multigrid_torch import dist
+    from tpu_multigrid_torch.cycles import cycle_with_norm
+    from tpu_multigrid_torch.dist import pallas_cycle3 as P3
+    summary = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    tdist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "store"), world_size=1, rank=0)
+    try:
+        mesh = dist.make_grid_mesh3((1, 1))
+        print(f"[dist3] one-rank {mesh.backend} group, mesh {mesh.shape} on "
+              f"{mesh.device}")
+        for (tag, solver, kw, cls, pkw, level, cfg, pre,
+             builder) in dist3_solvers():
+            n = 2 ** level
+            phys = (slice(1, n), slice(1, n), slice(1, n))
+            # 1. Until tol through the solver, its set-up included.
+            path = tag + "-tol"
+            build = HostSetup("tpu_multigrid_torch.dist.pallas_cycle3",
+                              builder)
+            res, secs, host, peak = front_door3(path, lambda: solver(
+                cfg, mesh, tol=DIST3_TOL, **kw)[0], build)
+            levels, hier = build.result
+            ns = levels.num_sharded
+            it = res.iterations
+            want = dist3_counts(pre, ns, it)
+            check(PATH_COUNTS[path] == want, f"{path} launches "
+                  f"{nonzero(PATH_COUNTS[path])}, expected {nonzero(want)}")
+            check(ns >= 2 and tuple(res.u.shape) == (
+                levels.sizes[0][1],) * 2 + (levels.sizes[0][2],)
+                and bool(torch.isfinite(res.u).all())
+                and (res.converged or res.stalled),
+                f"{path}: {ns} sharded, shape {tuple(res.u.shape)}, "
+                f"{var_state(res)}")
+            prob = (prob_var3 if tag == "dist3-var-9"
+                    else dist3_single(cls, pkw, cfg))
+            ref = tmg.solve_until_tol(prob.hierarchy, cfg, prob.rhs(),
+                                      tol=DIST3_TOL)
+            print(f"[dist3] {solver.__name__}({level}) {tag}, until tol "
+                  f"{DIST3_TOL:g}: levels {levels.sizes[:3]}... ({ns} "
+                  f"sharded); {var_state(res)} after {it} iterations, "
+                  f"history {hist_str(res)}; the single-device kernel route "
+                  f"{var_state(ref)} after {ref.iterations}; seconds for one "
+                  f"call {secs:.3f} (host build {host:.3f}); peak device "
+                  f"memory of the call {peak / 2 ** 30:.2f} GiB; launches "
+                  f"{nonzero(PATH_COUNTS[path])}  ({card})")
+            check(abs(it - ref.iterations) <= 1, f"{path}: {it} iterations "
+                  f"({var_state(res)}), single-device {ref.iterations} "
+                  f"({var_state(ref)})")
+            line = dict(iterations=it, state=var_state(res),
+                        single_iterations=ref.iterations,
+                        single_state=var_state(ref), seconds=secs,
+                        host_seconds=host, peak_gib=peak / 2 ** 30,
+                        sharded=ns)
+            del res, ref
+            torch.cuda.empty_cache()
+            # 2. Two fixed cycles on the same build against the single-
+            # device kernel route.
+            path = tag + "-fixed"
+            if pre:
+                res = drive(path, lambda: P3._sharded_solve_var3_from(
+                    cfg, mesh, levels, hier, forcing=6.0, tol=0.0,
+                    max_cycles=2, num_cycles=2, halo="lean")[0])
+            else:
+                res = drive(path, lambda: P3._solve(
+                    mesh, cfg, levels, hier, (), forcing=6.0, tol=0.0,
+                    max_cycles=2, num_cycles=2, halo="lean")[0])
+            want = dist3_counts(pre, ns, 2)
+            check(PATH_COUNTS[path] == want, f"{path} launches "
+                  f"{nonzero(PATH_COUNTS[path])}, expected {nonzero(want)}")
+            ref = tmg.solve_fixed(prob.hierarchy, cfg, prob.rhs(), 2)
+            a, w = res.u[phys], ref.u[phys]
+            du = float((a - w).abs().max()) / float(w.abs().max())
+            print(f"[dist3]   2 fixed cycles: history {hist_str(res)}, the "
+                  f"single-device kernel route {hist_str(ref)}; max |u - "
+                  f"u_single| / max|u_single| {du:.3e}")
+            check(du <= 1e-4, f"{path}: u differs from the single-device "
+                              f"route by {du} of max|u|")
+            line["fixed_du"] = du
+            del res, ref, a, w
+            torch.cuda.empty_cache()
+            # 3. ms per fused V-cycle at 513^3, and its tail's share.
+            if level == DIST3_LEVEL:
+                coefs, hier_d = (), hier.to(mesh.device)
+                if pre:
+                    coefs, hier_d = P3._split_pallas_var3(levels, hier, mesh)
+                ms, tail_ms = dist3_cycle_ms(mesh, cfg, levels, hier_d,
+                                             coefs)
+                b = prob.rhs()
+                u0 = torch.zeros_like(b)
+                single_ms = cuda_ms(lambda: cycle_with_norm(
+                    prob.hierarchy, cfg, u0, b))
+                print(f"[dist3]   fused 3D V-cycle with its norm {ms:.3f} ms"
+                      f"; its replicated plain tail from "
+                      f"{levels.sizes[ns][0] + 1}^3 alone {tail_ms:.3f} ms "
+                      f"({100 * tail_ms / ms:.1f} %); the single-device "
+                      f"kernel V-cycle with its norm {single_ms:.3f} ms "
+                      f"({ms / single_ms:.3f} x)  ({card})")
+                line.update(ms_per_cycle=ms, tail_ms=tail_ms,
+                            single_ms=single_ms)
+                del hier_d, coefs, b, u0
+            summary[tag] = line
+            del prob, levels, hier, build
+            torch.cuda.empty_cache()
+
+        # 4. The 2 x 2 mesh on the one card (gloo, strips staged through
+        # host memory) against the (1, 1) NCCL run.
+        level = DIST3_MESH_LEVEL
+        n = 2 ** level
+        phys = (slice(0, n + 1), slice(0, n + 1), slice(0, n + 1))
+        path = f"dist3-poisson-{level}-fixed"
+        r1, lv1 = drive(path, lambda: dist.sharded_solve_pallas3(
+            config3(True, level), mesh, num_cycles=DIST3_FIXED, tol=0.0))
+        want = dist3_counts("", lv1.num_sharded, DIST3_FIXED)
+        check(PATH_COUNTS[path] == want, f"{path} launches "
+              f"{nonzero(PATH_COUNTS[path])}, expected {nonzero(want)}")
+        u1 = dist.gather_full(mesh, r1.u).cpu()
+        h1 = np.asarray(r1.res_history)
+        del r1
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = dist.run_on_mesh(dist3_rank_program, (2, 2), backend="gloo",
+                               device=DEVICE + ":0",
+                               args=(level, DIST3_FIXED))
+        wall = time.perf_counter() - t0
+        o = out[0]
+        path = f"dist3-poisson-{level}-2x2"
+        total = {k: sum(r["counts"][k] for r in out) for k in o["counts"]}
+        PATH_COUNTS[path] = total
+        want = {k: 4 * v for k, v in dist3_counts(
+            "", o["num_sharded"], DIST3_FIXED).items()}
+        check(o["num_sharded"] == lv1.num_sharded == 2 and total == want,
+              f"{path}: {o['num_sharded']} sharded, launches "
+              f"{nonzero(total)}, expected {nonzero(want)}")
+        for r in out[1:]:
+            check(torch.equal(r["hist"], o["hist"]),
+                  f"{path}: the ranks disagree")
+        h4 = np.asarray(o["hist"])
+        ua, ub = o["u"][phys].numpy(), u1[phys].numpy()
+        hrel = float(np.max(np.abs(h4 / h1 - 1)))
+        close = np.allclose(ua, ub, rtol=1e-5, atol=1e-6)
+        bitwise = bool(np.array_equal(ua, ub))
+        print(f"[dist3] 2 x 2 gloo mesh on one card, sharded_solve_pallas3("
+              f"{level}), {DIST3_FIXED} cycles (levels {o['sizes'][:2]}..., "
+              f"{o['num_sharded']} sharded; the (1, 1) run "
+              f"{lv1.sizes[:2]}...): history rel diff to (1, 1) {hrel:.3e} "
+              f"(history {', '.join(f'{x:.4e}' for x in h4)}); u within "
+              f"rtol 1e-5 / atol 1e-6 of the (1, 1) run: {close}, bitwise "
+              f"equal: {bitwise} (max |du| {float(np.abs(ua - ub).max()):.3e}"
+              f"); seconds per rank {[round(r['seconds'], 3) for r in out]}, "
+              f"{wall:.3f} s with the ranks' start (not a multi-card time: "
+              f"the ranks share one card and stage every strip through host "
+              f"memory)  ({card})")
+        check(hrel <= 1e-4 and close, f"{path} against (1, 1): history rel "
+              f"diff {hrel}, u close {close}")
+        summary[path] = dict(history_rel_diff=hrel, u_bitwise=bitwise,
+                             seconds=o["seconds"], wall=wall)
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def dist3_cells(shape, origin, n):
+    """(cells, live, reach, coarse reach) of an extended 3D block: the live
+    cells (global 1..n-1), the cells their stencils read (0..n), and the
+    coarse cells the prolongation of the live cells reads."""
+    def span(o, size, lo, hi):
+        return max(0, min(o + size - 1, hi) - max(o, lo) + 1)
+    Rz, Ry, Sx = shape
+    sz, sy = span(origin[0], Rz, 0, n), span(origin[1], Ry, 0, n)
+    sx = span(0, Sx, 0, n)
+    live = (span(origin[0], Rz, 1, n - 1) * span(origin[1], Ry, 1, n - 1)
+            * span(0, Sx, 1, n - 1))
+    creach = (sz // 2 + 1) * (sy // 2 + 1) * (sx // 2 + 1)
+    return Rz * Ry * Sx, live, sz * sy * sx, creach
+
+
+def dist3_work(shape, shape_c, origin, n, nplanes, sm1, s1, sm2, s2):
+    """(bytes, operations) of the three entries (or their var forms), by
+    times3d's / var3_work's rule at a block: u over its reach (in full for
+    RB-GS, which keeps u outside the live cells; the live cells for K2,
+    which masks u + P e_c first), b over the live cells, each coefficient
+    plane over the reach, e_c over the coarse reach, every output in full;
+    the operations count the live cells (an eighth of them for the
+    restriction)."""
+    cells, live, reach, creach = dist3_cells(shape, origin, n)
+    ccells = shape_c[0] * shape_c[1] * shape_c[2]
+    clive = live // 8
+    extra = 1 if nplanes == 4 else 0
+    if nplanes:
+        step = {"jacobi": VJAC3 + extra, "rbgs": 2 * (VHALF3 + extra / 2)}
+        res, planes = VRES3 + extra, nplanes * reach
+    else:
+        step, res, planes = {"jacobi": JAC3, "rbgs": 2 * HALF3}, RES3, 0
+    u1 = cells if sm1 == "rbgs" else reach
+    pre = "var_" if nplanes else ""
+    k2 = 4 * (2 * live + planes + creach + cells)
+    return {
+        pre + "smooth_restrict_ext3": (
+            4 * (u1 + live + planes + cells + ccells),
+            (s1 * step[sm1] + res) * live + FW3 * clive),
+        pre + "prolong_smooth_ext3": (k2, (PRO3 + s2 * step[sm2]) * live),
+        pre + "prolong_smooth_ext3_resnorm": (
+            k2 + 4, (PRO3 + s2 * step[sm2] + res + 2) * live)}
+
+
+def dist3_times(card, times, work):
+    """Each extended-block 3D kernel at the (1, 1) level-9 block (origin
+    (-16, -16)) beside its plain version, Chebyshev (3, 2): the constant
+    stencil and the var forms on 3 planes (the records) and on 4 and 6
+    planes.  No PyTorch call smooths a stencil: no library time."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(62)
+    shape, shape_c, n = DIST3_BLOCKS[0]
+    origin = (-16, -16)
+    u, b = (torch.randn(shape, generator=gen, device=DEVICE)
+            for _ in range(2))
+    ec = torch.randn(shape_c, generator=gen, device=DEVICE)
+    for nplanes in (0, 3, 4, 6):
+        coef = None if not nplanes else 0.5 + torch.rand(
+            (nplanes,) + shape, generator=gen, device=DEVICE)
+        wk = dist3_work(shape, shape_c, origin, n, nplanes, "jacobi", 3,
+                        "jacobi", 2)
+        for name, (kern, plain) in dist3_cases(
+                u, b, ec, coef, origin, n, ("jacobi", 3),
+                ("jacobi", 2)).items():
+            kp = (cuda_ms(kern), cuda_ms(plain))
+            bms, by = bound(*wk[name])
+            if nplanes in (0, 3):
+                times[name], work[name] = kp, wk[name]
+            print(f"[times] {name:32s} {shape} {nplanes or 7}"
+                  f"{' planes' if nplanes else '-point'}, Chebyshev (3, 2):"
+                  f" kernel {kp[0]:.3f} ms, plain {kp[1]:.3f} ms, bound "
+                  f"{bms:.3f} ms ({by})  ({card})")
+        del coef
+        torch.cuda.empty_cache()
+    del u, b, ec
+    torch.cuda.empty_cache()
+
+
 # Float32 operations per node, counted from the 3D kernels' sources: a
 # Jacobi step of the 7-point stencil (6 adds, 2 multiplies, 1 add), an RB-GS
 # half-step on the half of the nodes it updates (7 each), the residual (8);
@@ -3989,6 +4456,7 @@ def phase_times(card, prob_var, prob_var3, prob_aniso):
     periodic_times(card, times, work)
     dist_times(card, times, work)
     dist_fas_times(card, times, work)
+    dist3_times(card, times, work)
     return times, work, library
 
 
@@ -4260,6 +4728,8 @@ def main():
     record_dist = phase_dist_slice(card, record)
     phase_dist_fas_kernels(errs)
     record_dist_fas = phase_dist_fas_slice(card, record_fas)
+    phase_dist3_kernels(errs)
+    record_dist3 = phase_dist3_slice(card, prob_var3)
     times, work, library = phase_times(card, prob_var, prob_var3, prob_aniso)
     launches = {name: sum(c[name] for c in PATH_COUNTS.values())
                 for name in REPLACES}
@@ -4273,6 +4743,7 @@ def main():
     print(f"[periodic] summary: {json.dumps(record_periodic)}")
     print(f"[dist] summary: {json.dumps(record_dist)}")
     print(f"[dist-fas] summary: {json.dumps(record_dist_fas)}")
+    print(f"[dist3] summary: {json.dumps(record_dist3)}")
     records = []
     for name in REPLACES:
         bms, by = bound(*work[name])

@@ -1117,3 +1117,135 @@ def test_dist_fas_mesh_route_launches(gen, tmp_path, monkeypatch, level):
                                         dist_path="pallas", num_cycles=1)
     finally:
         tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The distributed 3D tier's kernels (K1_3-ext, K2_3-local and their var
+# forms) and its solvers
+# ---------------------------------------------------------------------------
+
+# A (2, 2) shard block of a 64^3 grid (lz = ly = 48) and its four origins.
+EXT3_SHAPE, EXT3_SHAPE_C, EXT3_N = (80, 80, 128), (56, 56, 128), 64
+EXT3_ORIGINS = [(-16, -16), (32, -16), (-16, 32), (32, 32)]
+# Chebyshev 3 and 2, RB-GS 1, and RB-GS 5, whose K1 splits into launches.
+EXT3_SMOOTHERS = [("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+                  ("jacobi", ops.chebyshev_omegas(2, 0.4), 2),
+                  ("rbgs", 1.0, 1), ("rbgs", 1.0, 5)]
+
+
+def _ext3_calls(u, b, ec, coef, origin, n, sm, om, sw):
+    """[(name, kernel call, plain call)] of K1_3-ext, K2_3-local and
+    K2_3-local-resnorm, or of their var forms on ``coef``."""
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    from tpu_multigrid_torch.kernels import vartransfer3d as V3
+    mod, pre = (T3, "") if coef is None else (V3, "var_")
+    cf = () if coef is None else (coef,)
+    k1 = (u, b) + cf + (origin, n, tuple(ec.shape), sw, sm, om)
+    k2 = (u, b, ec) + cf + (origin, n, sw, sm, om)
+    out = [(pre + "smooth_restrict_ext3", pre + "smooth_restrict_ext3", k1,
+            {})]
+    out += [(pre + "prolong_smooth_ext3" + ("_resnorm" if w else ""),
+             pre + "prolong_smooth_ext3", k2, dict(want_resnorm=w))
+            for w in (False, True)]
+    return [(name, lambda f=getattr(mod, fn), a=a, kw=kw: f(*a, **kw),
+             lambda f=getattr(mod, fn + "_plain"), a=a, kw=kw: f(*a, **kw))
+            for name, fn, a, kw in out]
+
+
+@pytest.mark.parametrize("nplanes", [0, 3, 4, 6])
+@pytest.mark.parametrize("smoother,omega,sweeps", EXT3_SMOOTHERS)
+def test_dist3_kernels_match_plain_bitwise(gen, nplanes, smoother, omega,
+                                           sweeps):
+    """K1_3-ext (u', the whole coarse block), K2_3-local and
+    K2_3-local-resnorm, and their var forms on 3, 4 and 6 planes, bitwise
+    against their plain versions over the whole arrays (the owned sum of
+    squares to rtol 1e-5), random ghosts, ec and coefficients, at the four
+    origins of a 2 x 2 shard block; each entry counts its launches (two for
+    RB-GS 5's split K1)."""
+    u = torch.randn(EXT3_SHAPE, generator=gen, device="cuda")
+    b = torch.randn(EXT3_SHAPE, generator=gen, device="cuda")
+    ec = torch.randn(EXT3_SHAPE_C, generator=gen, device="cuda")
+    coef = None
+    if nplanes:
+        coef = 0.5 + torch.rand((nplanes,) + EXT3_SHAPE, generator=gen,
+                                device="cuda")
+    for origin in EXT3_ORIGINS:
+        for name, kern, plain in _ext3_calls(u, b, ec, coef, origin, EXT3_N,
+                                             smoother, omega, sweeps):
+            kernels.reset_launch_counts()
+            got = kern()
+            launched = kernels.launch_counts()[name]
+            want = plain()
+            assert launched == (2 if sweeps == 5 and "restrict" in name
+                                else 1), (name, launched)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                if g.dim() == 0:
+                    torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+                else:
+                    assert torch.equal(g, w), (name, origin)
+
+
+def test_dist3_kernels_refuse_what_they_do_not_take(gen):
+    """A block outside the gate, an odd origin and a coarse block of another
+    shape raise on the card; nothing runs plain there."""
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    from tpu_multigrid_torch.kernels import vartransfer3d as V3
+    u = torch.zeros(EXT3_SHAPE, device="cuda")
+    ec = torch.zeros(EXT3_SHAPE_C, device="cuda")
+    coef = torch.ones((3,) + EXT3_SHAPE, device="cuda")
+    bad = torch.zeros((80, 72, 128), device="cuda")
+    with pytest.raises(ValueError, match="extended-block"):
+        T3.smooth_restrict_ext3(bad, bad, (-16, -16), EXT3_N,
+                                (56, 52, 128), 1)
+    with pytest.raises(ValueError, match="even"):
+        T3.prolong_smooth_ext3(u, u, ec, (-15, -16), EXT3_N, 1)
+    with pytest.raises(ValueError, match="extended-block"):
+        V3.var_prolong_smooth_ext3(u, u, ec[:, :48], coef, (-16, -16),
+                                   EXT3_N, 1)
+    with pytest.raises(ValueError, match="extended-block"):
+        T3.smooth_restrict_ext3(u, u, (-16, -16), EXT3_N, EXT3_SHAPE_C, 8,
+                                "rbgs")
+
+
+def test_dist3_solvers_launch_the_kernels(gen, tmp_path):
+    """The three 3D solvers on a one-rank NCCL group at level 6 (two
+    sharded levels): one K1-ext and one K2-local per sharded level and
+    cycle, the finest K2 with the resnorm; histories within rtol 1e-4 of the
+    same solves on the CPU's plain versions, iterates within 1e-5 of
+    max|u|."""
+    import os
+    import torch.distributed as tdist
+    from tpu_multigrid_torch import dist
+    cfg = tmg.MultigridConfig(finest_level=6, coarsest_level=3,
+                              smoother="chebyshev", nu1=3, nu2=2)
+    kw = dict(num_cycles=2, tol=0.0, replicate_below=16)
+    winds = dict(eps=1.0, bx=lambda x, y, z: 4.0 * (1.0 + 0.0 * x),
+                 by=lambda x, y, z: torch.sin(3.0 * x), bz=0.5)
+    runs = [("", dist.sharded_solve_pallas3, {}),
+            ("var_", dist.sharded_solve_pallas_var3,
+             dict(coefficient=lambda x, y, z: 1.0 + x * y + z)),
+            ("var_", dist.sharded_solve_pallas_conv3, winds)]
+    cpu = dist.make_grid_mesh3((1, 1), device="cpu")
+    refs = [solver(cfg, cpu, **kw, **extra)[0] for _, solver, extra in runs]
+    tdist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp_path, "store"), world_size=1, rank=0)
+    try:
+        mesh = dist.make_grid_mesh3((1, 1))
+        for (pre, solver, extra), ref in zip(runs, refs):
+            kernels.reset_launch_counts()
+            res, lv = solver(cfg, mesh, **kw, **extra)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            ns = lv.num_sharded
+            assert ns == 2
+            assert counts == {pre + "smooth_restrict_ext3": 2 * ns,
+                              pre + "prolong_smooth_ext3": 2 * (ns - 1),
+                              pre + "prolong_smooth_ext3_resnorm": 2}
+            torch.testing.assert_close(res.res_history, ref.res_history,
+                                       rtol=1e-4, atol=0)
+            scale = float(ref.u.abs().max())
+            torch.testing.assert_close(res.u.cpu(), ref.u, rtol=0,
+                                       atol=1e-5 * scale)
+    finally:
+        tdist.destroy_process_group()

@@ -267,10 +267,12 @@ def test_var_kernel_options_raise():
     with pytest.raises(NotImplementedError):
         TV3.var_prolong_smooth3(u.double(), u.double(), u.double(),
                                 coef.double(), N, 1)
+    ud = u.double()
     with pytest.raises(NotImplementedError):
-        TV3.var_smooth_restrict_ext3(u, u, coef, None, N, SHAPE_C, 1)
+        TV3.var_smooth_restrict_ext3(ud, ud, coef.double(), (0, 0), N,
+                                     SHAPE_C, 1)
     with pytest.raises(NotImplementedError):
-        TV3.var_prolong_smooth_ext3(u, u, u, coef, None, N, 1)
+        TV3.var_prolong_smooth_ext3(ud, ud, ud, coef.double(), (0, 0), N, 1)
     with pytest.raises(ValueError):
         TV3.var_prolong_smooth3(u, u, u, torch.ones((5,) + SHAPE), N, 1)
     with pytest.raises(ValueError):

@@ -1,5 +1,5 @@
-"""Rank programs of tests/test_torch_dist.py and tests/test_torch_dist_fas.py,
-run by ``dist.run_on_mesh``.
+"""Rank programs of tests/test_torch_dist.py, tests/test_torch_dist_fas.py
+and tests/test_torch_dist3.py, run by ``dist.run_on_mesh``.
 
 This module imports torch and tpu_multigrid_torch only: the spawned ranks
 import it to find their program, and none of them pays for a JAX import.
@@ -12,6 +12,7 @@ import torch
 import tpu_multigrid_torch as tmg
 from tpu_multigrid_torch import dist
 from tpu_multigrid_torch.dist import pallas_cycle as PC
+from tpu_multigrid_torch.dist import pallas_cycle3 as P3
 
 # (dr, dc) depths of the ghost refresh under test: full, the lean (8, 128)
 # of Jacobi (2, 2), and an uneven one.
@@ -96,3 +97,69 @@ def fas_program(mesh):
                                                 num_cycles=cycles, tol=None)
         out[cycles] = (res.res_history, _gathered(mesh, res.u))
     return out, lv.sizes, lv.num_sharded
+
+
+# The 3D tier's programs (tests/test_torch_dist3.py).  (dz, dy) depths of
+# the 3D ghost refresh: full, the lean (6, 8) of Chebyshev (3, 2), and an
+# uneven one.
+DEPTHS3 = [(16, 16), (6, 8), (16, 8)]
+# Level-6 solves: Chebyshev (3, 2), coarsest level 3, replicate below 16.
+DIST3_LEVEL, DIST3_CYCLES = 6, 2
+
+
+def dist3_config():
+    return tmg.MultigridConfig(finest_level=DIST3_LEVEL, coarsest_level=3,
+                               smoother="chebyshev", nu1=3, nu2=2)
+
+
+def dist3_coefficient(x, y, z):
+    """The var solves' coefficient: a jump of 10 in one octant."""
+    return 1.0 + 10.0 * ((x > 0.5) & (z > 0.5))
+
+
+def seeded_blocks3(mesh_shape, seed, lz, ly, Sx):
+    """The global array of every rank's (lz, ly, Sx) extended 3D block,
+    seeded random values everywhere (ghosts included)."""
+    mz, my = mesh_shape
+    Rz, Ry = lz + 2 * P3.GZ3, ly + 2 * P3.GY3
+    return np.random.default_rng(seed).standard_normal(
+        (mz * Rz, my * Ry, Sx)).astype(np.float32)
+
+
+def refresh3_program(mesh, seed, n, lz, ly, Sx):
+    """This rank's block of :func:`seeded_blocks3`, refreshed at each of
+    :data:`DEPTHS3`; the gathered owned regions of the full refresh; and
+    this rank's scatter of the array's leading (mz lz, my ly) part."""
+    glob = seeded_blocks3(mesh.shape, seed, lz, ly, Sx)
+    Rz, Ry = lz + 2 * P3.GZ3, ly + 2 * P3.GY3
+    cz, cy = mesh.coords
+    blk = torch.from_numpy(glob[cz * Rz:(cz + 1) * Rz,
+                                cy * Ry:(cy + 1) * Ry])
+    out = {}
+    for dz, dy in DEPTHS3:
+        out[(dz, dy)] = P3.refresh_ghosts3(mesh, blk.clone(), n, lz, ly, dz,
+                                           dy)
+    out["gather"] = P3.gather_owned3(mesh, out[DEPTHS3[0]])
+    full = torch.from_numpy(glob[:mesh.shape[0] * lz,
+                                 :mesh.shape[1] * ly].copy())
+    out["scatter"] = P3.scatter_owned3(mesh, full, lz, ly)
+    out["coords"] = mesh.coords
+    return out
+
+
+def dist3_program(mesh, refresh_args):
+    """The cross-mesh checks of the 3D tier on ``mesh``: the refresh of
+    :func:`refresh3_program`, and the level-6 Poisson and var solves
+    (gathered, lean and full halo) with their level layouts."""
+    out = {"refresh": refresh3_program(mesh, *refresh_args)}
+    cfg = dist3_config()
+    kw = dict(num_cycles=DIST3_CYCLES, tol=0.0, replicate_below=16)
+    for name, solver, extra in (
+            ("poisson", dist.sharded_solve_pallas3, {}),
+            ("var", dist.sharded_solve_pallas_var3,
+             dict(coefficient=dist3_coefficient))):
+        for halo in ("lean", "full"):
+            res, lv = solver(cfg, mesh, halo=halo, **kw, **extra)
+            out[(name, halo)] = (res.res_history,
+                                 _gathered(mesh, res.u), lv)
+    return out

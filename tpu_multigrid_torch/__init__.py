@@ -30,8 +30,12 @@ the distributed fused tier on ``torch.distributed``
 dist_path="pallas")`` and the one-card 16385^2 refinement path) with K0-local
 and the compensated refinement kernels on ghost-extended blocks; and its
 nonlinear twin (``fas_sharded_solve_pallas``, behind the 2D FAS doors'
-``mesh=..., dist_path="pallas"``) with K1f-local and K2f-local.  The
-front doors run on the card unless the caller passes ``device``.
+``mesh=..., dist_path="pallas"``) with K1f-local and K2f-local; and the
+3D distributed fused tier (``sharded_solve_pallas3``,
+``sharded_solve_pallas_var3``, ``sharded_solve_pallas_conv3`` on a
+``make_grid_mesh3`` grid of ranks; library entries, no front door) with
+K1_3-ext, K2_3-local and their variable-coefficient forms.  The front doors
+run on the card unless the caller passes ``device``.
 """
 
 from .api import (extract_solution, solve_anisotropic, solve_bratu,
@@ -50,6 +54,10 @@ from .cycles import SolveResult, cycle, fmg, solve_fixed, solve_until_tol
 from .cycles.fas import (fas_cycle, fas_solve_fixed, fas_solve_until_tol,
                          fmg_fas)
 from .dist.fas_pallas import fas_sharded_solve_pallas
+from .dist.pallas_cycle3 import (sharded_solve_pallas3,
+                                 sharded_solve_pallas_conv3,
+                                 sharded_solve_pallas_var3)
+from .dist.mesh import make_grid_mesh3
 from .problems import (AnisotropicPoissonProblem, Bratu3DProblem,
                        BratuProblem, ConvectionDiffusion3DProblem,
                        Diffusion3DProblem, DiffusionProblem, HelmholtzProblem,
@@ -77,4 +85,6 @@ __all__ = [
     "QuasilinearFluxOp3", "fas_cycle", "fas_solve_fixed",
     "fas_solve_until_tol", "fmg_fas", "PeriodicPoissonProblem",
     "Periodic3DPoissonProblem", "fas_sharded_solve_pallas",
+    "make_grid_mesh3", "sharded_solve_pallas3", "sharded_solve_pallas_var3",
+    "sharded_solve_pallas_conv3",
 ]

@@ -113,6 +113,13 @@ def make_grid_mesh(shape: Optional[Tuple[int, int]] = None, *, group=None,
                     backend)
 
 
+# The 3D tiers' (mz, my) grid of ranks (the JAX package's
+# ``dist/shard_cycle3.py::make_grid_mesh3``) is the same mesh: axis 0 runs
+# along z, axis 1 along y, x is not decomposed, and the transport takes 3D
+# blocks as they are (the gather joins dims 0 and 1).
+make_grid_mesh3 = make_grid_mesh
+
+
 def _shift(mesh: GridMesh, x: torch.Tensor, axis: int, step: int):
     """Each rank receives ``x`` from the rank ``step`` before it along
     ``axis`` (cyclically)."""

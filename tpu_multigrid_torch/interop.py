@@ -238,3 +238,14 @@ def ext_block_from_numpy(full, mesh_shape, coords, device=None
     ext[GR:GR + lr, GC:GC + lc] = a[cy * lr:(cy + 1) * lr,
                                     cx * lc:(cx + 1) * lc]
     return tensor_from_numpy(ext, device)
+
+
+def pallas_levels3_from_jax(levels):
+    """The port's :class:`~tpu_multigrid_torch.dist.pallas_cycle3.
+    PallasLevels3` of a JAX ``PallasLevels3`` (its ``sizes`` and
+    ``num_sharded``)."""
+    from .dist.pallas_cycle3 import PallasLevels3
+    return PallasLevels3(tuple((int(n), int(S), int(Sx))
+                               for n, S, Sx in levels.sizes),
+                         int(levels.num_sharded))
+

@@ -88,6 +88,20 @@ _SIGNATURES = {
     # u, b, ec, coef, u_out, partials, out_sum, Sz, Sy, Sx, Szc, Syc, Scx,
     # n, steps, first_step, rbgs, nplanes, weights, count, stream
     "tmt_var_prolong_smooth3": ([_P] * 7 + [_I] * 11 + [_P, _I, _P], _I),
+    # u, b, u_out, rc, Rz, Ry, Sx, Scx, n, oz, oy, hz, hy, steps,
+    # first_step, rbgs, weights, count, stream
+    "tmt_smooth_restrict_ext3": ([_P] * 4 + [_I] * 12 + [_P, _I, _P], _I),
+    # u, b, ec, u_out, partials, out_sum, Rz, Ry, Sx, Scx, n, oz, oy, hz, hy,
+    # steps, first_step, rbgs, weights, count, stream
+    "tmt_prolong_smooth_ext3": ([_P] * 6 + [_I] * 12 + [_P, _I, _P], _I),
+    # u, b, coef, u_out, rc, Rz, Ry, Sx, Scx, n, oz, oy, hz, hy, steps,
+    # first_step, rbgs, nplanes, weights, count, stream
+    "tmt_var_smooth_restrict_ext3": ([_P] * 5 + [_I] * 13 + [_P, _I, _P],
+                                     _I),
+    # u, b, ec, coef, u_out, partials, out_sum, Rz, Ry, Sx, Scx, n, oz, oy,
+    # hz, hy, steps, first_step, rbgs, nplanes, weights, count, stream
+    "tmt_var_prolong_smooth_ext3": ([_P] * 7 + [_I] * 13 + [_P, _I, _P],
+                                    _I),
     "tmt_zebra_max_line": ([], _I),
     # u, b, coef, u_out, S, n, sweeps, stream
     "tmt_zebra_sweeps": ([_P] * 4 + [_I] * 3 + [_P], _I),

@@ -15,6 +15,14 @@
 //       it is a smoothing pass alone: u is loaded as it is (a continuation
 //       of a smoothing that an earlier launch began).
 //
+// Both run on a whole padded level or on a ghost-extended block (Grid3's
+// origin and ghost widths, the distributed tier): the masks and colours
+// come from global indices, and cells outside the array read as zero.  On
+// a block, K1 writes the coarse block whole: the coarse cells no fine cell
+// of the array restricts to (its frame) are zero, and the coarse interior
+// mask is taken in global coarse coordinates; K2 reads ec at the coarse
+// block's placement and its resnorm sums the owned cells only.
+//
 // A block owns one fine tile.  Its window holds the tile with a halo of
 // steps + 2 layers for K1 (each step invalidates one layer, the residual
 // and the blur need two more) and steps + 1 for K2 with the resnorm (steps
@@ -38,18 +46,21 @@
 
 namespace {
 
-// Trilinear prolongation of ec at fine node (i, j, k) >= 0, averaging x,
-// then y, then z; coarse nodes at or past m read 0.  An even index takes the
-// coarse value itself, which is what the Pallas kernel's 0.5 (c + c) gives.
+// Trilinear prolongation of ec at fine array node (i, j, k) >= 0 of `g`,
+// averaging x, then y, then z; the fine node's coarse neighbours sit at
+// (i / 2 + hz / 2, j / 2 + hy / 2, k / 2) of ec, and those past ec's extent
+// read 0.  An even index takes the coarse value itself, which is what the
+// Pallas kernel's 0.5 (c + c) gives.
 __device__ __forceinline__ float prolong3_at(const float* __restrict__ ec,
-                                             const Grid3& gc, int mz, int my,
-                                             int mx, int i, int j, int k) {
-  const int I = i >> 1;
-  const int J = j >> 1;
+                                             const Grid3& g, const Grid3& gc,
+                                             int i, int j, int k) {
+  const int I = (i >> 1) + g.hz / 2;
+  const int J = (j >> 1) + g.hy / 2;
   const int K = k >> 1;
   auto c = [&](int a, int bb, int cc) {
-    return (a < mz && bb < my && cc < mx) ? __ldg(ec + gidx(gc, a, bb, cc))
-                                          : 0.0f;
+    return (a < gc.Sz && bb < gc.Sy && cc < gc.Sx)
+               ? __ldg(ec + gidx(gc, a, bb, cc))
+               : 0.0f;
   };
   auto px = [&](int a, int bb) {
     return (k & 1) ? 0.5f * (c(a, bb, K) + c(a, bb, K + 1)) : c(a, bb, K);
@@ -71,20 +82,28 @@ smooth_restrict3_kernel(const float* __restrict__ u,
   const int halo = steps + 2;
   const int tyz = kW3yz - 2 * halo;   // even: the coarse tile is tyz / 2
   const int tx = kW3x - 2 * halo;
-  const int zo = blockIdx.z * tyz;
-  const int yo = blockIdx.y * tyz;
-  const int xo = blockIdx.x * tx;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int cyz = tyz / 2;
   const int cx = tx / 2;
   const int ncoarse = cyz * cyz * cx;
+  // The blocks tile the coarse array; the fine tile of coarse tile
+  // (Iz, Jy, Kx) starts at fine (2 Iz - hz, 2 Jy - hy, 2 Kx), which lies
+  // outside a ghost-extended block for the coarse frame.
+  const int Iz = blockIdx.z * cyz;
+  const int Jy = blockIdx.y * cyz;
+  const int Kx = blockIdx.x * cx;
+  const int zo = 2 * Iz - g.hz;
+  const int yo = 2 * Jy - g.hy;
+  const int xo = 2 * Kx;
 
-  if (zo >= g.Sz || yo >= g.Sy || xo >= g.Sx) {
-    // Coarse tail past S/2: no fine node maps here; it stays zero.
+  if (zo >= g.Sz || yo >= g.Sy || xo >= g.Sx || zo + tyz <= 0 ||
+      yo + tyz <= 0) {
+    // No fine node of the array in the tile (the coarse tail past S/2, or a
+    // block's coarse frame): its coarse nodes are zero.
     for (int i = tid; i < ncoarse; i += kThreads3) {
-      const int K = xo / 2 + i % cx;
-      const int J = yo / 2 + (i / cx) % cyz;
-      const int I = zo / 2 + i / (cx * cyz);
+      const int K = Kx + i % cx;
+      const int J = Jy + (i / cx) % cyz;
+      const int I = Iz + i / (cx * cyz);
       if (I < gc.Sz && J < gc.Sy && K < gc.Sx) {
         rc[gidx(gc, I, J, K)] = 0.0f;
         if constexpr (Fas) uc[gidx(gc, I, J, K)] = 0.0f;
@@ -103,7 +122,7 @@ smooth_restrict3_kernel(const float* __restrict__ u,
   load_window3(bw, b, g, z0, y0, x0);
   __syncthreads();
 
-  const float* v = smooth3(buf_a, buf_b, bw, z0, y0, x0, g.n, steps,
+  const float* v = smooth3(buf_a, buf_b, bw, g, z0, y0, x0, steps,
                            first_step, rbgs, wt, op);
   float* r = (v == buf_a) ? buf_b : buf_a;
 
@@ -123,8 +142,7 @@ smooth_restrict3_kernel(const float* __restrict__ u,
     const int gz = z0 + lz;
     const int gy = y0 + ly;
     const int k = row * kW3x + lx;
-    r[k] = interior3(gz, gy, gx, g.n) ? op.residual(v, bw, k, gz, gy, gx)
-                                      : 0.0f;
+    r[k] = live3(g, gz, gy, gx) ? op.residual(v, bw, k, gz, gy, gx) : 0.0f;
     if (x_tile && lz >= halo && lz < halo + tyz && ly >= halo &&
         ly < halo + tyz && in_array3(g, gz, gy, gx)) {
       u_out[gidx(g, gz, gy, gx)] = v[k];
@@ -132,19 +150,22 @@ smooth_restrict3_kernel(const float* __restrict__ u,
   }
   __syncthreads();
 
-  // R = P^T / 2 at the tile's even nodes: blur x, then y, then z, halve.
+  // R = P^T / 2 at the tile's even nodes: blur x, then y, then z, halve;
+  // the coarse mask in global coarse coordinates (gc's origin).  A coarse
+  // node whose fine node lies outside the array is zero.
   const int nc = g.n / 2;
   for (int i = tid; i < ncoarse; i += kThreads3) {
     const int ck = i % cx;
     const int cj = (i / cx) % cyz;
     const int ci = i / (cx * cyz);
-    const int I = zo / 2 + ci;
-    const int J = yo / 2 + cj;
-    const int K = xo / 2 + ck;
+    const int I = Iz + ci;
+    const int J = Jy + cj;
+    const int K = Kx + ck;
     if (I >= gc.Sz || J >= gc.Sy || K >= gc.Sx) continue;
     float val = 0.0f;
     float u0 = 0.0f;
-    if (interior3(I, J, K, nc)) {
+    if (in_array3(g, zo + 2 * ci, yo + 2 * cj, xo + 2 * ck) &&
+        interior3(I + gc.oz, J + gc.oy, K, nc)) {
       const int k = (2 * ci + halo) * kW3Plane + (2 * cj + halo) * kW3x +
                     2 * ck + halo;
       auto t1 = [&](int q) { return r[q] + 0.5f * (r[q - 1] + r[q + 1]); };
@@ -156,7 +177,7 @@ smooth_restrict3_kernel(const float* __restrict__ u,
         // uc0 at coarse (I + dz, J + dy, K + dx): u' two fine layers out
         // along each offset axis, 0 outside the coarse interior.
         auto c = [&](int dz, int dy, int dx) {
-          return interior3(I + dz, J + dy, K + dx, nc)
+          return interior3(I + gc.oz + dz, J + gc.oy + dy, K + dx, nc)
                      ? v[k + 2 * (dz * kW3Plane + dy * kW3x + dx)]
                      : 0.0f;
         };
@@ -185,9 +206,6 @@ prolong_smooth3_kernel(const float* __restrict__ u,
   const int z0 = blockIdx.z * tyz - halo;
   const int y0 = blockIdx.y * tyz - halo;
   const int x0 = blockIdx.x * tx - halo;
-  const int mz = min(gc.Sz, (g.Sz + 1) / 2);
-  const int my = min(gc.Sy, (g.Sy + 1) / 2);
-  const int mx = min(gc.Sx, (g.Sx + 1) / 2);
   float* buf_a = smem;
   float* buf_b = smem + kW3Cells;
   float* bw = smem + 2 * kW3Cells;
@@ -203,18 +221,19 @@ prolong_smooth3_kernel(const float* __restrict__ u,
       const int gz = z0 + lz;
       const int gy = y0 + ly;
       buf_a[row * kW3x + lx] =
-          interior3(gz, gy, gx, g.n)
-              ? u[gidx(g, gz, gy, gx)] +
-                    prolong3_at(ec, gc, mz, my, mx, gz, gy, gx)
+          live3(g, gz, gy, gx)
+              ? u[gidx(g, gz, gy, gx)] + prolong3_at(ec, g, gc, gz, gy, gx)
               : 0.0f;
     }
   }
   load_window3(bw, b, g, z0, y0, x0);
   __syncthreads();
 
-  const float* v = smooth3(buf_a, buf_b, bw, z0, y0, x0, g.n, steps,
+  const float* v = smooth3(buf_a, buf_b, bw, g, z0, y0, x0, steps,
                            first_step, rbgs, wt, op);
 
+  // The resnorm sums the owned live cells: the whole array's live cells on
+  // a padded level, the ones inside the ghost zones on a block.
   float acc = 0.0f;
   const bool x_tile = lx >= halo && lx < halo + tx;
   for (int row = threadIdx.y; row < kW3Rows; row += blockDim.y) {
@@ -229,7 +248,8 @@ prolong_smooth3_kernel(const float* __restrict__ u,
     if (!in_array3(g, gz, gy, gx)) continue;
     const int k = row * kW3x + lx;
     u_out[gidx(g, gz, gy, gx)] = v[k];
-    if (partials != nullptr && interior3(gz, gy, gx, g.n)) {
+    if (partials != nullptr && live3(g, gz, gy, gx) && gz >= g.hz &&
+        gz < g.Sz - g.hz && gy >= g.hy && gy < g.Sy - g.hy) {
       const float rr = op.residual(v, bw, k, gz, gy, gx);
       acc += rr * rr;
     }
@@ -245,10 +265,28 @@ prolong_smooth3_kernel(const float* __restrict__ u,
   }
 }
 
+// The fine and coarse grids of a ghost-extended (Rz, Ry, Sx) block whose
+// cell (0, 0, 0) sits at global (oz, oy, 0), with hz ghost planes and hy
+// ghost rows a side, and of its (Rz / 2 + hz, Ry / 2 + hy, Scx) coarse
+// block.  The origin and the ghost widths must be even (so that the
+// restriction's decimation and P's parities stay local ones); the coarse
+// block's origin is then (oz / 2 - hz / 2, oy / 2 - hy / 2).
+inline cudaError_t ext_grids3(int Rz, int Ry, int Sx, int Scx, int n, int oz,
+                              int oy, int hz, int hy, Grid3* g, Grid3* gc) {
+  if ((oz | oy | hz | hy | Rz | Ry) & 1 || hz < 0 || hy < 0 ||
+      Rz <= 2 * hz || Ry <= 2 * hy) {
+    return cudaErrorInvalidValue;
+  }
+  *g = Grid3{Rz, Ry, Sx, n, oz, oy, hz, hy};
+  *gc = Grid3{Rz / 2 + hz, Ry / 2 + hy, Scx, n / 2, oz / 2 - hz / 2,
+              oy / 2 - hy / 2};
+  return cudaSuccess;
+}
+
 // One K1 launch of `steps` steps starting at global step `first_step`.  The
-// grid covers 2 * Sc along each axis (>= S) so that the coarse tail past S/2
-// is zeroed too.  Fas = true: the FAS variant, writing bc into rc and uc0
-// into uc.
+// grid covers the coarse array (2 * Sc fine nodes along each axis, >= S) so
+// that the coarse tail past S/2, or a block's coarse frame, is zeroed too.
+// Fas = true: the FAS variant, writing bc into rc and uc0 into uc.
 template <typename Op, bool Fas = false>
 cudaError_t launch_smooth_restrict3(const float* u, const float* b,
                                     float* u_out, float* rc, const Grid3& g,

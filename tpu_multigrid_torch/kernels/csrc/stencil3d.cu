@@ -51,7 +51,7 @@ streamed3_kernel(const float* __restrict__ u, const float* __restrict__ b,
 
   ConstOp3<false> op;
   op.tp.count = 0;
-  const float* v = smooth3(buf_a, buf_b, bw, z0, y0, x0, g.n, steps,
+  const float* v = smooth3(buf_a, buf_b, bw, g, z0, y0, x0, steps,
                            first_step, rbgs, wt, op);
 
   const int lx = threadIdx.x;

@@ -31,11 +31,87 @@
 // with no ec) and K2_3 its trailing ones, each launch told the index of its
 // first step.
 //
+// The ghost-extended forms (tmt_smooth_restrict_ext3,
+// tmt_prolong_smooth_ext3: K1_3-ext and K2_3-local, replacing the Pallas
+// kernels' origin / ghost variants, ::_smooth_restrict3 with `origin` and
+// ::_prolong_smooth_local3) run the same templates on a block's grids
+// (levelvisit3.cuh's ext_grids3): masks and colours from global indices,
+// the coarse block written whole, the resnorm over the owned cells.
+//
 // Arithmetic: the Pallas kernels' order, as kernels/transfer3d.py's plain
 // versions repeat it.  Built with -fmad=false: u' and rc match the plain
 // versions bitwise.
 
 #include "levelvisit3.cuh"
+
+namespace {
+
+// The 7-point stencil (ntaps 0) or static weights from the host's taps.
+cudaError_t const_op(const void* taps, int ntaps, ConstOp3<true>* op27,
+                     ConstOp3<false>* op7) {
+  op7->tp.count = 0;
+  if (ntaps == 0) return cudaSuccess;
+  return make_taps(static_cast<const float*>(taps), ntaps, &op27->tp);
+}
+
+// One K1_3 launch on the grids g / gc.
+cudaError_t smooth_restrict3_on(const void* u, const void* b, void* u_out,
+                                void* rc, const Grid3& g, const Grid3& gc,
+                                int steps, int first_step, int rbgs,
+                                const void* weights, int count,
+                                const void* taps, int ntaps, void* stream) {
+  Weights wt;
+  cudaError_t err =
+      make_weights(static_cast<const float*>(weights), count, &wt);
+  if (err != cudaSuccess) return err;
+  ConstOp3<true> op27;
+  ConstOp3<false> op7;
+  err = const_op(taps, ntaps, &op27, &op7);
+  if (err != cudaSuccess) return err;
+  const float* uu = static_cast<const float*>(u);
+  const float* bb = static_cast<const float*>(b);
+  float* out = static_cast<float*>(u_out);
+  float* rcc = static_cast<float*>(rc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ntaps > 0) {
+    return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
+                                   first_step, rbgs, wt, op27, st);
+  }
+  return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps, first_step,
+                                 rbgs, wt, op7, st);
+}
+
+// One K2_3 launch on the grids g / gc.
+cudaError_t prolong_smooth3_on(const void* u, const void* b, const void* ec,
+                               void* u_out, void* partials, void* out_sum,
+                               const Grid3& g, const Grid3& gc, int steps,
+                               int first_step, int rbgs, const void* weights,
+                               int count, const void* taps, int ntaps,
+                               void* stream) {
+  Weights wt;
+  cudaError_t err =
+      make_weights(static_cast<const float*>(weights), count, &wt);
+  if (err != cudaSuccess) return err;
+  ConstOp3<true> op27;
+  ConstOp3<false> op7;
+  err = const_op(taps, ntaps, &op27, &op7);
+  if (err != cudaSuccess) return err;
+  const float* uu = static_cast<const float*>(u);
+  const float* bb = static_cast<const float*>(b);
+  const float* cc = static_cast<const float*>(ec);
+  float* out = static_cast<float*>(u_out);
+  float* part = static_cast<float*>(partials);
+  float* sum = static_cast<float*>(out_sum);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ntaps > 0) {
+    return launch_prolong_smooth3(uu, bb, cc, out, part, sum, g, gc, steps,
+                                  first_step, rbgs, wt, op27, st);
+  }
+  return launch_prolong_smooth3(uu, bb, cc, out, part, sum, g, gc, steps,
+                                first_step, rbgs, wt, op7, st);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -54,28 +130,9 @@ int tmt_smooth_restrict3(const void* u, const void* b, void* u_out, void* rc,
                          int n, int steps, int first_step, int rbgs,
                          const void* weights, int count, const void* taps,
                          int ntaps, void* stream) {
-  Weights wt;
-  cudaError_t err =
-      make_weights(static_cast<const float*>(weights), count, &wt);
-  if (err != cudaSuccess) return err;
-  const Grid3 g{Sz, Sy, Sx, n};
-  const Grid3 gc{Szc, Syc, Scx, n / 2};
-  const float* uu = static_cast<const float*>(u);
-  const float* bb = static_cast<const float*>(b);
-  float* out = static_cast<float*>(u_out);
-  float* rcc = static_cast<float*>(rc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ntaps > 0) {
-    ConstOp3<true> op;
-    err = make_taps(static_cast<const float*>(taps), ntaps, &op.tp);
-    if (err != cudaSuccess) return err;
-    return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
-                                   first_step, rbgs, wt, op, st);
-  }
-  ConstOp3<false> op;
-  op.tp.count = 0;
-  return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps, first_step,
-                                 rbgs, wt, op, st);
+  return smooth_restrict3_on(u, b, u_out, rc, Grid3{Sz, Sy, Sx, n},
+                             Grid3{Szc, Syc, Scx, n / 2}, steps, first_step,
+                             rbgs, weights, count, taps, ntaps, stream);
 }
 
 // ec: the coarse correction, or null for a smoothing pass alone.  partials:
@@ -87,30 +144,42 @@ int tmt_prolong_smooth3(const void* u, const void* b, const void* ec,
                         int steps, int first_step, int rbgs,
                         const void* weights, int count, const void* taps,
                         int ntaps, void* stream) {
-  Weights wt;
-  cudaError_t err =
-      make_weights(static_cast<const float*>(weights), count, &wt);
+  return prolong_smooth3_on(u, b, ec, u_out, partials, out_sum,
+                            Grid3{Sz, Sy, Sx, n}, Grid3{Szc, Syc, Scx, n / 2},
+                            steps, first_step, rbgs, weights, count, taps,
+                            ntaps, stream);
+}
+
+// K1_3-ext: K1_3 (7-point) on a ghost-extended (Rz, Ry, Sx) block at global
+// origin (oz, oy) with (hz, hy) ghost cells a side (levelvisit3.cuh's
+// ext_grids3); rc the whole (Rz / 2 + hz, Ry / 2 + hy, Scx) coarse block.
+int tmt_smooth_restrict_ext3(const void* u, const void* b, void* u_out,
+                             void* rc, int Rz, int Ry, int Sx, int Scx, int n,
+                             int oz, int oy, int hz, int hy, int steps,
+                             int first_step, int rbgs, const void* weights,
+                             int count, void* stream) {
+  Grid3 g, gc;
+  cudaError_t err = ext_grids3(Rz, Ry, Sx, Scx, n, oz, oy, hz, hy, &g, &gc);
   if (err != cudaSuccess) return err;
-  const Grid3 g{Sz, Sy, Sx, n};
-  const Grid3 gc{Szc, Syc, Scx, n / 2};
-  const float* uu = static_cast<const float*>(u);
-  const float* bb = static_cast<const float*>(b);
-  const float* cc = static_cast<const float*>(ec);
-  float* out = static_cast<float*>(u_out);
-  float* part = static_cast<float*>(partials);
-  float* sum = static_cast<float*>(out_sum);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ntaps > 0) {
-    ConstOp3<true> op;
-    err = make_taps(static_cast<const float*>(taps), ntaps, &op.tp);
-    if (err != cudaSuccess) return err;
-    return launch_prolong_smooth3(uu, bb, cc, out, part, sum, g, gc, steps,
-                                  first_step, rbgs, wt, op, st);
-  }
-  ConstOp3<false> op;
-  op.tp.count = 0;
-  return launch_prolong_smooth3(uu, bb, cc, out, part, sum, g, gc, steps,
-                                first_step, rbgs, wt, op, st);
+  return smooth_restrict3_on(u, b, u_out, rc, g, gc, steps, first_step, rbgs,
+                             weights, count, nullptr, 0, stream);
+}
+
+// K2_3-local: K2_3 (7-point) on a ghost-extended block and its coarse block
+// ec (or null: a smoothing pass alone); with partials, out_sum[0] receives
+// the sum of (b - A u')^2 over the owned live cells.
+int tmt_prolong_smooth_ext3(const void* u, const void* b, const void* ec,
+                            void* u_out, void* partials, void* out_sum,
+                            int Rz, int Ry, int Sx, int Scx, int n, int oz,
+                            int oy, int hz, int hy, int steps, int first_step,
+                            int rbgs, const void* weights, int count,
+                            void* stream) {
+  Grid3 g, gc;
+  cudaError_t err = ext_grids3(Rz, Ry, Sx, Scx, n, oz, oy, hz, hy, &g, &gc);
+  if (err != cudaSuccess) return err;
+  return prolong_smooth3_on(u, b, ec, u_out, partials, out_sum, g, gc, steps,
+                            first_step, rbgs, weights, count, nullptr, 0,
+                            stream);
 }
 
 }  // extern "C"

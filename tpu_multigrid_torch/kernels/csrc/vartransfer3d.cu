@@ -26,9 +26,16 @@
 // path (__ldg), constant over the steps and served from L1/L2 after the
 // window's first step.  The minus-direction transmissibilities are the
 // stored planes one node back (tz at z-1, ty at y-1, tx at x-1), read at
-// interior nodes only, where that node lies in the array.  A halo deeper
-// than the window's kMaxHalo3 is split across launches by the wrapper, as
-// for K1_3 / K2_3.
+// live nodes only; on a ghost-extended block a live node may sit on the
+// array's first plane or row, whose node one back lies outside the array
+// and couples with 0.  A halo deeper than the window's kMaxHalo3 is split
+// across launches by the wrapper, as for K1_3 / K2_3.
+//
+// The ghost-extended forms (tmt_var_smooth_restrict_ext3,
+// tmt_var_prolong_smooth_ext3: K1v_3-ext and K2v_3-local, replacing the
+// Pallas kernels' origin / ghost variants, ::_var_smooth_restrict3 with
+// `origin` and ::_var_prolong_smooth_local3) are the same templates on a
+// block's grids (levelvisit3.cuh), the coefficient stack ghost-inclusive.
 //
 // Arithmetic: the Pallas kernels' order (_expand_t3 / _expand_dir3 and
 // _offdiag3), which kernels/vartransfer3d.py's plain versions repeat:
@@ -46,7 +53,8 @@
 namespace {
 
 // The var operator of a window: P coefficient planes of the fine grid, each
-// `plane` floats apart.  Its methods are called at interior nodes only.
+// `plane` floats apart.  Its methods are called at live nodes only, with
+// the node's array indices.
 template <int P>
 struct VarOp3 {
   const float* __restrict__ coef;
@@ -68,11 +76,11 @@ struct VarOp3 {
       mx = __ldg(c + 5 * plane + o);
     } else {
       pz = __ldg(c + o);
-      mz = __ldg(c + o - static_cast<size_t>(Sy) * Sx);
+      mz = gz > 0 ? __ldg(c + o - static_cast<size_t>(Sy) * Sx) : 0.0f;
       py = __ldg(c + plane + o);
-      my = __ldg(c + plane + o - Sx);
+      my = gy > 0 ? __ldg(c + plane + o - Sx) : 0.0f;
       px = __ldg(c + 2 * plane + o);
-      mx = __ldg(c + 2 * plane + o - 1);
+      mx = gx > 0 ? __ldg(c + 2 * plane + o - 1) : 0.0f;
     }
     diag = ((pz + mz) + (py + my)) + (px + mx);
     if (P == 4) diag = diag + __ldg(c + 3 * plane + o);
@@ -120,24 +128,17 @@ VarOp3<P> var_op(const void* coef, const Grid3& g) {
   return op;
 }
 
-}  // namespace
-
-extern "C" {
-
-// coef: (nplanes, Sz, Sy, Sx) float32, nplanes 3, 4 or 6.  weights: host
-// array [c1[0..count), c2[0..count)] with c1 = 1 - w, c2 = w (unused by
-// RB-GS).  first_step: the global index of the launch's first step.
-int tmt_var_smooth_restrict3(const void* u, const void* b, const void* coef,
-                             void* u_out, void* rc, int Sz, int Sy, int Sx,
-                             int Szc, int Syc, int Scx, int n, int steps,
-                             int first_step, int rbgs, int nplanes,
-                             const void* weights, int count, void* stream) {
+// One K1v_3 launch on the grids g / gc.
+cudaError_t var_smooth_restrict3_on(const void* u, const void* b,
+                                    const void* coef, void* u_out, void* rc,
+                                    const Grid3& g, const Grid3& gc,
+                                    int steps, int first_step, int rbgs,
+                                    int nplanes, const void* weights,
+                                    int count, void* stream) {
   Weights wt;
   cudaError_t err =
       make_weights(static_cast<const float*>(weights), count, &wt);
   if (err != cudaSuccess) return err;
-  const Grid3 g{Sz, Sy, Sx, n};
-  const Grid3 gc{Szc, Syc, Scx, n / 2};
   const float* uu = static_cast<const float*>(u);
   const float* bb = static_cast<const float*>(b);
   float* out = static_cast<float*>(u_out);
@@ -161,21 +162,19 @@ int tmt_var_smooth_restrict3(const void* u, const void* b, const void* coef,
   }
 }
 
-// ec: the coarse correction, or null for a smoothing pass alone.  partials:
-// tmt_prolong_smooth3_blocks floats, or null for no resnorm; then
-// out_sum[0] receives the sum of (b - A u')^2 over the interior.
-int tmt_var_prolong_smooth3(const void* u, const void* b, const void* ec,
-                            const void* coef, void* u_out, void* partials,
-                            void* out_sum, int Sz, int Sy, int Sx, int Szc,
-                            int Syc, int Scx, int n, int steps,
-                            int first_step, int rbgs, int nplanes,
-                            const void* weights, int count, void* stream) {
+// One K2v_3 launch on the grids g / gc.
+cudaError_t var_prolong_smooth3_on(const void* u, const void* b,
+                                   const void* ec, const void* coef,
+                                   void* u_out, void* partials,
+                                   void* out_sum, const Grid3& g,
+                                   const Grid3& gc, int steps,
+                                   int first_step, int rbgs, int nplanes,
+                                   const void* weights, int count,
+                                   void* stream) {
   Weights wt;
   cudaError_t err =
       make_weights(static_cast<const float*>(weights), count, &wt);
   if (err != cudaSuccess) return err;
-  const Grid3 g{Sz, Sy, Sx, n};
-  const Grid3 gc{Szc, Syc, Scx, n / 2};
   const float* uu = static_cast<const float*>(u);
   const float* bb = static_cast<const float*>(b);
   const float* cc = static_cast<const float*>(ec);
@@ -199,6 +198,78 @@ int tmt_var_prolong_smooth3(const void* u, const void* b, const void* ec,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// coef: (nplanes, Sz, Sy, Sx) float32, nplanes 3, 4 or 6.  weights: host
+// array [c1[0..count), c2[0..count)] with c1 = 1 - w, c2 = w (unused by
+// RB-GS).  first_step: the global index of the launch's first step.
+int tmt_var_smooth_restrict3(const void* u, const void* b, const void* coef,
+                             void* u_out, void* rc, int Sz, int Sy, int Sx,
+                             int Szc, int Syc, int Scx, int n, int steps,
+                             int first_step, int rbgs, int nplanes,
+                             const void* weights, int count, void* stream) {
+  return var_smooth_restrict3_on(u, b, coef, u_out, rc, Grid3{Sz, Sy, Sx, n},
+                                 Grid3{Szc, Syc, Scx, n / 2}, steps,
+                                 first_step, rbgs, nplanes, weights, count,
+                                 stream);
+}
+
+// ec: the coarse correction, or null for a smoothing pass alone.  partials:
+// tmt_prolong_smooth3_blocks floats, or null for no resnorm; then
+// out_sum[0] receives the sum of (b - A u')^2 over the interior.
+int tmt_var_prolong_smooth3(const void* u, const void* b, const void* ec,
+                            const void* coef, void* u_out, void* partials,
+                            void* out_sum, int Sz, int Sy, int Sx, int Szc,
+                            int Syc, int Scx, int n, int steps,
+                            int first_step, int rbgs, int nplanes,
+                            const void* weights, int count, void* stream) {
+  return var_prolong_smooth3_on(u, b, ec, coef, u_out, partials, out_sum,
+                                Grid3{Sz, Sy, Sx, n},
+                                Grid3{Szc, Syc, Scx, n / 2}, steps,
+                                first_step, rbgs, nplanes, weights, count,
+                                stream);
+}
+
+// K1v_3-ext: K1v_3 on a ghost-extended (Rz, Ry, Sx) block at global origin
+// (oz, oy) with (hz, hy) ghost cells a side (levelvisit3.cuh's ext_grids3),
+// coef its ghost-inclusive (nplanes, Rz, Ry, Sx) stack; rc the whole
+// (Rz / 2 + hz, Ry / 2 + hy, Scx) coarse block.
+int tmt_var_smooth_restrict_ext3(const void* u, const void* b,
+                                 const void* coef, void* u_out, void* rc,
+                                 int Rz, int Ry, int Sx, int Scx, int n,
+                                 int oz, int oy, int hz, int hy, int steps,
+                                 int first_step, int rbgs, int nplanes,
+                                 const void* weights, int count,
+                                 void* stream) {
+  Grid3 g, gc;
+  cudaError_t err = ext_grids3(Rz, Ry, Sx, Scx, n, oz, oy, hz, hy, &g, &gc);
+  if (err != cudaSuccess) return err;
+  return var_smooth_restrict3_on(u, b, coef, u_out, rc, g, gc, steps,
+                                 first_step, rbgs, nplanes, weights, count,
+                                 stream);
+}
+
+// K2v_3-local: K2v_3 on a ghost-extended block and its coarse block ec (or
+// null: a smoothing pass alone); with partials, out_sum[0] receives the sum
+// of (b - A u')^2 over the owned live cells.
+int tmt_var_prolong_smooth_ext3(const void* u, const void* b, const void* ec,
+                                const void* coef, void* u_out,
+                                void* partials, void* out_sum, int Rz,
+                                int Ry, int Sx, int Scx, int n, int oz,
+                                int oy, int hz, int hy, int steps,
+                                int first_step, int rbgs, int nplanes,
+                                const void* weights, int count,
+                                void* stream) {
+  Grid3 g, gc;
+  cudaError_t err = ext_grids3(Rz, Ry, Sx, Scx, n, oz, oy, hz, hy, &g, &gc);
+  if (err != cudaSuccess) return err;
+  return var_prolong_smooth3_on(u, b, ec, coef, u_out, partials, out_sum, g,
+                                gc, steps, first_step, rbgs, nplanes,
+                                weights, count, stream);
 }
 
 }  // extern "C"

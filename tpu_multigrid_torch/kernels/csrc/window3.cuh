@@ -18,8 +18,9 @@
 // Arithmetic: the Pallas kernels' order (tpu_multigrid/kernels/
 // stencil3d.py), which the plain versions in kernels/stencil3d.py repeat,
 // built with -fmad=false so that nothing is contracted into an FMA.  Cells
-// outside the array read as zero; the interior mask and the RB-GS parity
-// come from global indices.  Global offsets are 64-bit.
+// outside the array read as zero and are never updated; the interior mask
+// and the RB-GS parity come from global indices (a Grid3's origin plus the
+// array index).  Array offsets are 64-bit.
 
 #pragma once
 
@@ -39,8 +40,17 @@ constexpr int kMaxHalo3 = kW3yz / 2 - 1;
 constexpr int kMaxTaps = 26;
 constexpr int kWindow3Bytes = 3 * kW3Cells * static_cast<int>(sizeof(float));
 
+// An (Sz, Sy, Sx) array whose unknowns are the global interior 1..n-1.  A
+// whole padded level has origin and ghost widths 0.  A ghost-extended block
+// of a decomposed grid (the distributed tier, local3 entries of
+// transfer3d.cu and vartransfer3d.cu) has its cell (0, 0, 0) at global
+// (oz, oy, 0) and an owned region inside hz ghost planes and hy ghost rows
+// a side; its coarse block holds fine cell (z, y) (both even) at coarse
+// (z / 2 + hz / 2, y / 2 + hy / 2).
 struct Grid3 {
   int Sz, Sy, Sx, n;
+  int oz = 0, oy = 0;
+  int hz = 0, hy = 0;
 };
 
 // A static 3x3x3 stencil's off-diagonal taps, in the order they are summed
@@ -85,6 +95,18 @@ __device__ __forceinline__ bool in_array3(const Grid3& g, int z, int y,
 __device__ __forceinline__ bool interior3(int z, int y, int x, int n) {
   return z >= 1 && z <= n - 1 && y >= 1 && y <= n - 1 && x >= 1 &&
          x <= n - 1;
+}
+
+// Whether array cell (z, y, x) is an unknown: in the array, and inside the
+// global interior.
+__device__ __forceinline__ bool live3(const Grid3& g, int z, int y, int x) {
+  return in_array3(g, z, y, x) && interior3(z + g.oz, y + g.oy, x, g.n);
+}
+
+// The RB-GS colour of array cell (z, y, x): the parity of its global
+// indices.
+__device__ __forceinline__ int color3(const Grid3& g, int z, int y, int x) {
+  return (z + g.oz + y + g.oy + x) & 1;
 }
 
 // x-1, x+1, y-1, y+1, z-1, z+1: the Pallas kernel's neighbour order.
@@ -132,8 +154,8 @@ __device__ void load_window3(float* dst, const float* __restrict__ src,
 
 // The constant operator of a window: the 7-point Poisson stencil, or static
 // 3x3x3 weights (S27).  The smoothing and level-visit templates call
-// jacobi / gs / residual at interior nodes only; `gz, gy, gx` are the
-// node's global indices (unused here).
+// jacobi / gs / residual at live nodes only; `gz, gy, gx` are the node's
+// array indices (unused here).
 template <bool S27>
 struct ConstOp3 {
   Taps tp;
@@ -158,21 +180,22 @@ struct ConstOp3 {
   }
 };
 
-// Runs `steps` steps of `op` on the window, each from the state before it
-// into the other buffer; returns the buffer that holds the result (the
-// other one is free).  Jacobi local step s uses weights s % count and writes
-// 0 outside the interior.  RB-GS half-step s updates the interior nodes of
-// colour (first_step + s) % 2 and keeps every other node.  The outermost
-// layer has no neighbours in the window and keeps its value: it is invalid
-// after the first step.
+// Runs `steps` steps of `op` on the window at array origin (z0, y0, x0) of
+// `g`, each from the state before it into the other buffer; returns the
+// buffer that holds the result (the other one is free).  Jacobi local step
+// s uses weights s % count and writes 0 at every cell that is not live.
+// RB-GS half-step s updates the live nodes of colour (first_step + s) % 2
+// and keeps every other node.  The outermost layer has no neighbours in the
+// window and keeps its value: it is invalid after the first step.
 template <typename Op>
-__device__ float* smooth3(float* v, float* spare, const float* bw, int z0,
-                          int y0, int x0, int n, int steps, int first_step,
-                          int rbgs, const Weights& wt, const Op& op) {
+__device__ float* smooth3(float* v, float* spare, const float* bw,
+                          const Grid3& g, int z0, int y0, int x0, int steps,
+                          int first_step, int rbgs, const Weights& wt,
+                          const Op& op) {
   const int lx = threadIdx.x;
   const int gx = x0 + lx;
   const bool x_inner = lx > 0 && lx < kW3x - 1;
-  const bool x_in = gx >= 1 && gx <= n - 1;
+  const bool x_in = gx >= 1 && gx <= g.n - 1;
   for (int s = 0; s < steps; ++s) {
     const float c1 = wt.c1[s % wt.count];
     const float c2 = wt.c2[s % wt.count];
@@ -185,10 +208,13 @@ __device__ float* smooth3(float* v, float* spare, const float* bw, int z0,
       if (x_inner && lz > 0 && lz < kW3yz - 1 && ly > 0 && ly < kW3yz - 1) {
         const int gz = z0 + lz;
         const int gy = y0 + ly;
-        const bool inter = x_in && gz >= 1 && gz <= n - 1 && gy >= 1 &&
-                           gy <= n - 1;
+        const int wz = gz + g.oz;
+        const int wy = gy + g.oy;
+        const bool inter = x_in && gz >= 0 && gz < g.Sz && gy >= 0 &&
+                           gy < g.Sy && wz >= 1 && wz <= g.n - 1 &&
+                           wy >= 1 && wy <= g.n - 1;
         if (rbgs) {
-          if (inter && ((gz + gy + gx) & 1) == color) {
+          if (inter && color3(g, gz, gy, gx) == color) {
             out = op.gs(v, bw, k, gz, gy, gx, c2);
           }
         } else {

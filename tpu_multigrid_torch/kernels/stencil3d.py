@@ -26,6 +26,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import ops3d
 from . import _build
@@ -51,11 +52,21 @@ def supported3(shape, dtype, steps: int = 1) -> bool:
 # Plain versions, in the Pallas kernels' order
 # ---------------------------------------------------------------------------
 
+def shifted3(v: torch.Tensor, d: int, ax: int) -> torch.Tensor:
+    """``v[i + d]`` along axis ``ax`` (-1, -2 or -3; d = +-1), cells outside
+    the array reading 0."""
+    pad = [0] * 6
+    pad[2 * (-1 - ax) + (d > 0)] = 1        # F.pad: last axis first
+    return F.pad(v, pad).narrow(ax, int(d > 0), v.shape[ax])
+
+
 def nbr3(v: torch.Tensor) -> torch.Tensor:
-    """The six face neighbours summed x-1, x+1, y-1, y+1, z-1, z+1."""
-    return (((((torch.roll(v, 1, -1) + torch.roll(v, -1, -1))
-               + torch.roll(v, 1, -2)) + torch.roll(v, -1, -2))
-             + torch.roll(v, 1, -3)) + torch.roll(v, -1, -3))
+    """The six face neighbours summed x-1, x+1, y-1, y+1, z-1, z+1, cells
+    outside the array reading 0 (no interior cell of a padded level reads
+    one)."""
+    return (((((shifted3(v, -1, -1) + shifted3(v, 1, -1))
+               + shifted3(v, -1, -2)) + shifted3(v, 1, -2))
+             + shifted3(v, -1, -3)) + shifted3(v, 1, -3))
 
 
 def stencil_taps(stencil) -> tuple:
@@ -78,20 +89,28 @@ def off27(v: torch.Tensor, taps) -> torch.Tensor:
     return out if out is not None else torch.zeros_like(v)
 
 
-def _masks(v, n):
-    shape = v.shape[-3:]
-    return (ops3d.interior_mask3(shape, n, v.device),
-            ops3d.parity3(shape, v.device))
+def masks3(shape, n: int, device, origin=(0, 0)):
+    """(interior, parity) of an (Sz, Sy, Sx) array whose cell (0, 0, 0) sits
+    at global ``origin`` (oz, oy, 0): the global interior 1..n-1 and the
+    parity of the global indices (origin (0, 0): a padded level)."""
+    g = [torch.arange(m, device=device) for m in shape]
+    g[0], g[1] = g[0] + int(origin[0]), g[1] + int(origin[1])
+    inner = [(x >= 1) & (x <= n - 1) for x in g]
+    interior = (inner[0][:, None, None] & inner[1][None, :, None]
+                & inner[2][None, None, :])
+    return interior, (g[0][:, None, None] + g[1][None, :, None]
+                      + g[2][None, None, :]) % 2
 
 
 def smooth3_plain(u, b, n: int, steps: int, smoother: str, omega,
-                  stencil=None, first_step: int = 0):
+                  stencil=None, first_step: int = 0, origin=(0, 0)):
     """``steps`` Jacobi steps (weight ``omega[j % len]`` or ``omega`` at
     step j) or RB-GS half-steps (half-step j updates parity
-    (first_step + j) % 2), on the 7-point stencil or on static weights."""
+    (first_step + j) % 2), on the 7-point stencil or on static weights;
+    masks and colours from the global indices of an array at ``origin``."""
     if steps <= 0:
         return u
-    interior, parity = _masks(u, n)
+    interior, parity = masks3(u.shape[-3:], n, u.device, origin)
     taps = None if stencil is None else stencil_taps(stencil)
     inv_d = None if stencil is None else 1.0 / stencil[1][1][1]
     v = u
@@ -113,13 +132,14 @@ def smooth3_plain(u, b, n: int, steps: int, smoother: str, omega,
     return v
 
 
-def residual3_plain(u, b, n: int, stencil=None):
-    """b - A u in the Pallas order, masked to the interior."""
+def residual3_plain(u, b, n: int, stencil=None, origin=(0, 0)):
+    """b - A u in the Pallas order, masked to the interior of an array at
+    ``origin``."""
     if stencil is None:
         r = b - 6.0 * u + nbr3(u)
     else:
         r = b - stencil[1][1][1] * u - off27(u, stencil_taps(stencil))
-    return ops3d.mask_interior3(r, n)
+    return torch.where(masks3(u.shape[-3:], n, u.device, origin)[0], r, 0.0)
 
 
 def jacobi_sweeps3_plain(u, b, n: int, omega, sweeps: int):

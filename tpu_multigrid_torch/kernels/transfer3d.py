@@ -20,6 +20,22 @@ smoothing passes alone and its last ones fused with the residual and the
 restriction, K2_3 its prolongation with the first steps and the rest as
 smoothing passes, the resnorm fused into the last.  ``LAUNCHES`` counts
 kernel launches per entry, each launch of a split call included.
+
+The same two kernels run on a ghost-extended block of a decomposed grid
+(the distributed tier, ``dist.pallas_cycle3``): K1_3-ext,
+:func:`smooth_restrict_ext3`, and K2_3-local, :func:`prolong_smooth_ext3`
+(with ``want_resnorm`` the owned cells' sum of squares), replacing the
+Pallas kernels' origin / ghost variants ``::_smooth_restrict3`` with
+``origin`` and ``::_prolong_smooth_local3``.  A block is an ``(Rz, Ry, Sx)``
+array, an owned region inside ``GZ`` ghost planes and ``GY`` ghost rows a
+side, whose cell (0, 0, 0) sits at global ``(oz, oy, 0)``: the interior mask
+and the RB-GS colours come from the global coordinates, cells outside the
+array read as zero, and the coarse block ``(Rz/2 + GZ, Ry/2 + GY, Scx)``
+holds fine cell (z, y) (both even) at (z/2 + GZ/2, y/2 + GY/2), its
+interior mask taken in global coarse coordinates and its frame zero.  Every
+output is defined on the whole array, ghosts included; the Pallas kernels
+define the owned regions only, which is all a caller reads after
+refreshing the ghosts.
 """
 
 from __future__ import annotations
@@ -31,11 +47,12 @@ import torch
 
 from ..core import ops, ops3d
 from . import _build
-from .stencil3d import (residual3_plain, rbgs_weights3, smooth3_plain,
-                        stencil_taps, step_weights3)
+from .stencil3d import (masks3, residual3_plain, rbgs_weights3, shifted3,
+                        smooth3_plain, stencil_taps, step_weights3)
 
 LAUNCHES = {"smooth_restrict3": 0, "prolong_smooth3": 0,
-            "prolong_smooth_resnorm3": 0}
+            "prolong_smooth_resnorm3": 0, "smooth_restrict_ext3": 0,
+            "prolong_smooth_ext3": 0, "prolong_smooth_ext3_resnorm": 0}
 
 
 def supported3(shape, shape_c, steps: int, dtype) -> bool:
@@ -62,32 +79,34 @@ def supported3(shape, shape_c, steps: int, dtype) -> bool:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def restrict3_plain(r, n: int, shape_c):
+def restrict3_plain(r, n: int, shape_c, origin=(0, 0)):
     """R = P^T / 2 in the Pallas order: at the even nodes, blur x, then y,
-    then z ([1/2, 1, 1/2] each), halve, and mask to the coarse interior of
-    ``shape_c`` (zero past S/2).  Even extents only."""
+    then z ([1/2, 1, 1/2] each, cells outside reading 0), halve, and mask
+    to the coarse interior of ``shape_c`` (zero past S/2), in the global
+    coarse coordinates of an array at fine ``origin`` (even).  Even extents
+    only."""
     t = r
     for ax in (-1, -2, -3):
         even = t[(Ellipsis, slice(0, None, 2)) + (slice(None),) * (-1 - ax)]
         odd = t[(Ellipsis, slice(1, None, 2)) + (slice(None),) * (-1 - ax)]
-        t = even + 0.5 * (torch.roll(odd, 1, ax) + odd)
-    return ops3d.mask_interior3(ops3d._crop_pad3(0.5 * t,
-                                                 ops3d._shape3(shape_c)),
-                                n // 2)
+        t = even + 0.5 * (shifted3(odd, -1, ax) + odd)
+    c = ops3d._crop_pad3(0.5 * t, ops3d._shape3(shape_c))
+    origin_c = (int(origin[0]) // 2, int(origin[1]) // 2)
+    return torch.where(masks3(c.shape, n // 2, r.device, origin_c)[0], c, 0.0)
 
 
 def prolong3_plain(ec, shape):
     """Trilinear prolongation onto ``shape`` in the Pallas order: replicate
     each coarse node twice along an axis, then average each node with the
-    next, along x, then y, then z (an even node averages a value with
-    itself: exactly that value).  Coarse nodes past the fine reach are
-    dropped; unmasked."""
+    next (0 past the last), along x, then y, then z (an even node averages
+    a value with itself: exactly that value).  Coarse nodes past the fine
+    reach are dropped; unmasked."""
     shf = ops3d._shape3(shape)
-    m = tuple(min(ec.shape[ax], (shf[ax] + 1) // 2) for ax in range(3))
+    m = tuple(min(ec.shape[ax], shf[ax] // 2 + 1) for ax in range(3))
     e = ec[:m[0], :m[1], :m[2]]
     for ax in (-1, -2, -3):
         e = e.repeat_interleave(2, dim=ax)
-        e = 0.5 * (e + torch.roll(e, -1, ax))
+        e = 0.5 * (e + shifted3(e, 1, ax))
     return ops3d._crop_pad3(e, shf)
 
 
@@ -283,3 +302,180 @@ def prolong_smooth_resnorm3(u, b, ec, n: int, sweeps: int,
     u_out, ss = _prolong_smooth3_cuda("prolong_smooth_resnorm3", u, b, ec, n,
                                       sweeps, smoother, omega, stencil, True)
     return u_out, torch.sqrt(ss)
+
+
+# ---------------------------------------------------------------------------
+# Ghost-extended blocks (the distributed tier)
+# ---------------------------------------------------------------------------
+
+def supported_local3(shape, shape_c, steps: int, dtype,
+                     ghost=(16, 16)) -> bool:
+    """Whether the extended-block kernels take an (Rz, Ry, Sx) block and its
+    coarse block with ``steps`` window steps: the shape and depth rules of
+    ``tpu_multigrid.kernels.transfer3d.supported_local3`` (an even Rz, Ry a
+    multiple of 16, lane-aligned x, the coarse block of
+    :func:`coarse_shape_ext3`, ghosts deep enough for steps + 2 layers),
+    with an owned region inside the ghosts.  (That gate also asks the TPU
+    kernel's VMEM tiling to exist: ``dist.pallas_cycle3`` keeps it as a
+    layout rule, the kernels here take any block.)"""
+    Rz, Ry, Sx = shape
+    Rzc, Ryc, Scx = shape_c
+    GZ, GY = ghost
+    if dtype != torch.float32:
+        return False
+    if Sx % 128 or Scx % 128 or Sx < 128 or 2 * Scx < Sx:
+        return False
+    if GZ % 2 or GY % 16 or Rz % 2 or Ry % 16:
+        return False
+    if Rz <= 2 * GZ or Ry <= 2 * GY or steps + 2 > min(GZ, GY):
+        return False
+    return (Rzc, Ryc) == (Rz // 2 + GZ, Ry // 2 + GY)
+
+
+def coarse_shape_ext3(shape, Scx: int, ghost=(16, 16)) -> tuple:
+    """The coarse block of an (Rz, Ry, Sx) block."""
+    return (shape[0] // 2 + ghost[0], shape[1] // 2 + ghost[1], Scx)
+
+
+def restrict_ext3_plain(r, origin, n: int, Scx: int, ghost=(16, 16)):
+    """R = P^T / 2 of a block's residual ``r`` into its whole coarse block
+    (:func:`restrict3_plain` at the block's ``origin``, placed at (GZ/2,
+    GY/2, 0)); the frame is zero."""
+    GZ, GY = ghost
+    Rz, Ry, _ = r.shape
+    out = r.new_zeros(coarse_shape_ext3(r.shape, Scx, ghost))
+    out[GZ // 2:GZ // 2 + Rz // 2, GY // 2:GY // 2 + Ry // 2] = \
+        restrict3_plain(r, n, (Rz // 2, Ry // 2, Scx), origin)
+    return out
+
+
+def prolong_ext3_plain(ec, shape, ghost=(16, 16)):
+    """Trilinear P of the coarse block ``ec`` on an (Rz, Ry, Sx) block
+    (:func:`prolong3_plain` from coarse node (GZ/2, GY/2, 0)): fine cell
+    (z, y, x) reads the coarse nodes from (z/2 + GZ/2, y/2 + GY/2, x/2);
+    nodes past ec's extent read 0.  Unmasked."""
+    return prolong3_plain(ec[ghost[0] // 2:, ghost[1] // 2:], shape)
+
+
+def owned_sum_sq3(r, ghost=(16, 16)):
+    """The sum of r^2 over a block's owned region, 0-d float32."""
+    GZ, GY = ghost
+    o = r[GZ:r.shape[0] - GZ, GY:r.shape[1] - GY]
+    return torch.sum(o * o)
+
+
+def smooth_restrict_ext3_plain(u, b, origin, n: int, shape_c, sweeps: int,
+                               smoother: str = "jacobi", omega=2.0 / 3.0,
+                               ghost=(16, 16)):
+    """K1_3-ext's plain version: (u', the whole coarse block)."""
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    v = smooth3_plain(u, b, n, steps, smoother, omega, origin=origin)
+    return v, restrict_ext3_plain(residual3_plain(v, b, n, origin=origin),
+                                  origin, n, shape_c[2], ghost)
+
+
+def prolong_smooth_ext3_plain(u, b, ec, origin, n: int, sweeps: int,
+                              smoother: str = "jacobi", omega=2.0 / 3.0,
+                              ghost=(16, 16), want_resnorm: bool = False):
+    """K2_3-local's plain version: u' = smooth(where(live, u + P ec, 0)), and
+    with ``want_resnorm`` also the owned live cells' sum of (b - A u')^2."""
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    live = masks3(u.shape, n, u.device, origin)[0]
+    v = torch.where(live, u + prolong_ext3_plain(ec, u.shape, ghost), 0.0)
+    v = smooth3_plain(v, b, n, steps, smoother, omega, origin=origin)
+    if want_resnorm:
+        return v, owned_sum_sq3(residual3_plain(v, b, n, origin=origin),
+                                ghost)
+    return v
+
+
+def check_ext3(entry, u, shape_c, smoother, origin, steps, ghost) -> tuple:
+    """Validate an extended-block call: float32, a known smoother, an even
+    origin, a block and coarse block the gate takes.  Returns the block's
+    shape."""
+    _check_options(entry, u, smoother)
+    shape = _shape(entry, u)
+    if int(origin[0]) % 2 or int(origin[1]) % 2:
+        raise ValueError(f"{entry}: the origin must be even, got "
+                         f"{tuple(origin)}")
+    if not supported_local3(shape, tuple(shape_c), steps, u.dtype, ghost):
+        raise ValueError(f"{entry}: no extended-block kernel for the block "
+                         f"{shape} / {tuple(shape_c)} with {steps} steps and "
+                         f"ghosts {tuple(ghost)}")
+    return shape
+
+
+def ext_args(shape, Scx, n, origin, ghost) -> tuple:
+    """The geometry arguments of an extended-block C entry."""
+    return (*shape, Scx, n, int(origin[0]), int(origin[1]), *ghost)
+
+
+def smooth_restrict_ext3(u, b, origin, n: int, shape_c, sweeps: int,
+                         smoother: str = "jacobi", omega=2.0 / 3.0,
+                         ghost=(16, 16)):
+    """K1_3-ext: (u after ``sweeps`` sweeps, the coarse block ``shape_c``
+    holding the restricted residual).  ``origin``: the block's global
+    (oz, oy), even host ints."""
+    entry = "smooth_restrict_ext3"
+    shape_c = tuple(shape_c)
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    shape = check_ext3(entry, u, shape_c, smoother, origin, steps, ghost)
+    if u.device.type == "cpu":
+        return smooth_restrict_ext3_plain(u, b, origin, n, shape_c, sweeps,
+                                          smoother, omega, ghost)
+    _build.check_inputs(entry, (u, b), (shape, shape))
+    lib = _build.lib()
+    _, rbgs, ws, _ = launch_args(entry, smoother, omega, sweeps, None)
+    plan = split_plan(steps, 2, lib.window3_max_halo, ws)
+    rc = torch.empty(shape_c, dtype=u.dtype, device=u.device)
+    geo = ext_args(shape, shape_c[2], n, origin, ghost)
+
+    def launch(i, src, out, first, k, launch_ws, stream):
+        wt = _weights(rbgs, launch_ws, None)
+        rest = (*geo, k, first, rbgs, wt.ctypes.data, wt.size // 2, stream)
+        if i < len(plan) - 1:      # a leading smoothing pass
+            return lib.tmt_prolong_smooth_ext3(src.data_ptr(), b.data_ptr(),
+                                               None, out.data_ptr(), None,
+                                               None, *rest)
+        return lib.tmt_smooth_restrict_ext3(src.data_ptr(), b.data_ptr(),
+                                            out.data_ptr(), rc.data_ptr(),
+                                            *rest)
+    return run_launches(entry, LAUNCHES, u, plan, launch), rc
+
+
+def prolong_smooth_ext3(u, b, ec, origin, n: int, sweeps: int,
+                        smoother: str = "jacobi", omega=2.0 / 3.0,
+                        ghost=(16, 16), want_resnorm: bool = False):
+    """K2_3-local: u <- smooth(where(live, u + P ec, 0), b).  With
+    ``want_resnorm`` also the sum of squares of b - A u' over the owned live
+    cells as a 0-d float32 tensor, summed in a fixed order (the caller adds
+    the ranks' sums, then takes the square root)."""
+    entry = ("prolong_smooth_ext3_resnorm" if want_resnorm
+             else "prolong_smooth_ext3")
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    shape = check_ext3(entry, u, ec.shape, smoother, origin, steps, ghost)
+    if u.device.type == "cpu":
+        return prolong_smooth_ext3_plain(u, b, ec, origin, n, sweeps,
+                                         smoother, omega, ghost, want_resnorm)
+    shape_c = tuple(ec.shape)
+    _build.check_inputs(entry, (u, b, ec), (shape, shape, shape_c))
+    lib = _build.lib()
+    _, rbgs, ws, _ = launch_args(entry, smoother, omega, sweeps, None)
+    plan = split_plan(steps, int(want_resnorm), lib.window3_max_halo, ws)
+    partials = out_sum = None
+    if want_resnorm:
+        blocks = lib.tmt_prolong_smooth3_blocks(*shape, plan[-1][1])
+        partials = torch.empty(blocks, dtype=torch.float32, device=u.device)
+        out_sum = torch.empty((), dtype=torch.float32, device=u.device)
+    geo = ext_args(shape, shape_c[2], n, origin, ghost)
+
+    def launch(i, src, out, first, k, launch_ws, stream):
+        wt = _weights(rbgs, launch_ws, None)
+        norm = want_resnorm and i == len(plan) - 1
+        return lib.tmt_prolong_smooth_ext3(
+            src.data_ptr(), b.data_ptr(), ec.data_ptr() if i == 0 else None,
+            out.data_ptr(), partials.data_ptr() if norm else None,
+            out_sum.data_ptr() if norm else None, *geo, k, first, rbgs,
+            wt.ctypes.data, wt.size // 2, stream)
+    u_out = run_launches(entry, LAUNCHES, u, plan, launch)
+    return (u_out, out_sum) if want_resnorm else u_out

@@ -26,6 +26,17 @@ the planes (``(tz + tzm) + (ty + tym) + (tx + txm)``, + c2; the stored
 ``inv_diag`` is not read) and sum the off-diagonal x+, x-, y+, y-, z+, z-;
 the operators keep the JAX package's jnp order, so the kernel path and the
 plain operator path agree to f32 roundoff.
+
+On a ghost-extended block of a decomposed grid (the distributed tier,
+``dist.pallas_cycle3``) the same kernels are K1v_3-ext,
+:func:`var_smooth_restrict_ext3`, and K2v_3-local,
+:func:`var_prolong_smooth_ext3`, replacing the Pallas kernels' origin /
+ghost variants ``::_var_smooth_restrict3`` with ``origin`` and
+``::_var_prolong_smooth_local3``: ``kernels.transfer3d``'s block geometry
+with a ghost-inclusive coefficient stack.  A minus plane one node before
+the array's first plane, row or column couples with 0 there (the stack's
+ghost shells hold the neighbours' true values, so only the block's outer
+layer, invalid anyway, sees it).
 """
 
 from __future__ import annotations
@@ -37,11 +48,16 @@ import torch
 
 from ..core import ops, ops3d
 from . import _build
-from .transfer3d import (launch_args, prolong3_plain, restrict3_plain,
-                         run_launches, split_plan)
+from .stencil3d import masks3, shifted3
+from .transfer3d import (check_ext3, ext_args, launch_args, owned_sum_sq3,
+                         prolong3_plain, prolong_ext3_plain, restrict3_plain,
+                         restrict_ext3_plain, run_launches, split_plan,
+                         supported_local3)
 
 LAUNCHES = {"var_smooth_restrict3": 0, "var_prolong_smooth3": 0,
-            "var_prolong_smooth_resnorm3": 0}
+            "var_prolong_smooth_resnorm3": 0, "var_smooth_restrict_ext3": 0,
+            "var_prolong_smooth_ext3": 0,
+            "var_prolong_smooth_ext3_resnorm": 0}
 
 
 def supported_var3(shape, shape_c, steps: int, dtype,
@@ -84,16 +100,17 @@ def _flat_coef3(op):
 def expand3(coef):
     """(diag, invd, planes) of a coefficient stack: ``planes`` the couplings
     to x+, x-, y+, y-, z+, z- (the minus planes of a flux stack are the
-    stored ones rolled one node on), invd = 1 / diag where diag != 0."""
+    stored ones one node back, 0 before the array's first plane, row or
+    column), invd = 1 / diag where diag != 0."""
     if coef.shape[0] == 6:
         cpz, cpy, cpx, cmz, cmy, cmx = coef
         diag = ((cpz + cmz) + (cpy + cmy)) + (cpx + cmx)
         planes = (cpx, cmx, cpy, cmy, cpz, cmz)
     else:
         tz, ty, tx = coef[0], coef[1], coef[2]
-        tzm = torch.roll(tz, 1, -3)
-        tym = torch.roll(ty, 1, -2)
-        txm = torch.roll(tx, 1, -1)
+        tzm = shifted3(tz, -1, -3)
+        tym = shifted3(ty, -1, -2)
+        txm = shifted3(tx, -1, -1)
         diag = ((tz + tzm) + (ty + tym)) + (tx + txm)
         if coef.shape[0] == 4:
             diag = diag + coef[3]
@@ -104,25 +121,26 @@ def expand3(coef):
 
 
 def off3(planes, v):
-    """x+ v(x+1) + x- v(x-1) + y+ v(y+1) + ..., summed from the left."""
-    shifts = ((-1, -1), (1, -1), (-1, -2), (1, -2), (-1, -3), (1, -3))
+    """x+ v(x+1) + x- v(x-1) + y+ v(y+1) + ..., summed from the left, cells
+    outside the array reading 0."""
+    shifts = ((1, -1), (-1, -1), (1, -2), (-1, -2), (1, -3), (-1, -3))
     acc = None
-    for c, (s, ax) in zip(planes, shifts):
-        t = c * torch.roll(v, s, ax)
+    for c, (d, ax) in zip(planes, shifts):
+        t = c * shifted3(v, d, ax)
         acc = t if acc is None else acc + t
     return acc
 
 
 def var_smooth3_plain(u, b, coef, n: int, steps: int, smoother: str, omega,
-                      first_step: int = 0):
+                      first_step: int = 0, origin=(0, 0)):
     """``steps`` Jacobi steps (weight ``omega[j % len]`` or ``omega`` at step
     j) or RB-GS half-steps (half-step j updates parity (first_step + j) %
-    2)."""
+    2); masks and colours from the global indices of an array at
+    ``origin``."""
     if steps <= 0:
         return u
     _, invd, planes = expand3(coef)
-    interior = ops3d.interior_mask3(u.shape, n, u.device)
-    parity = ops3d.parity3(u.shape, u.device)
+    interior, parity = masks3(u.shape, n, u.device, origin)
     v = u
     for j in range(steps):
         f = b + off3(planes, v)
@@ -135,10 +153,12 @@ def var_smooth3_plain(u, b, coef, n: int, steps: int, smoother: str, omega,
     return v
 
 
-def var_residual3_plain(u, b, coef, n: int):
-    """(b - diag u) + off, masked to the interior."""
+def var_residual3_plain(u, b, coef, n: int, origin=(0, 0)):
+    """(b - diag u) + off, masked to the interior of an array at
+    ``origin``."""
     diag, _, planes = expand3(coef)
-    return ops3d.mask_interior3((b - diag * u) + off3(planes, u), n)
+    return torch.where(masks3(u.shape, n, u.device, origin)[0],
+                       (b - diag * u) + off3(planes, u), 0.0)
 
 
 def var_smooth_restrict3_plain(u, b, coef, n: int, shape_c, sweeps: int,
@@ -285,16 +305,129 @@ def var_prolong_smooth_resnorm3(u, b, ec, coef, n: int, sweeps: int,
     return u_out, torch.sqrt(ss)
 
 
-def var_smooth_restrict_ext3(*args, **kwargs):
-    """K1v_3 on a ghost-extended shard block (``origin`` / ``ghost``): the
-    distributed path, not ported yet."""
-    raise NotImplementedError("var_smooth_restrict_ext3: ghost-extended "
-                              "blocks (distributed solves) are not ported "
-                              "yet")
+# ---------------------------------------------------------------------------
+# Ghost-extended blocks (the distributed tier)
+# ---------------------------------------------------------------------------
+
+def supported_local_var3(shape, shape_c, steps: int, dtype, ghost=(16, 16),
+                         nplanes: int = 3) -> bool:
+    """Whether K1v_3-ext / K2v_3-local take a block pair: the rules of
+    ``tpu_multigrid.kernels.vartransfer3d.supported_local_var3`` (the block
+    rules of ``transfer3d.supported_local3`` and 3, 4 or 6 planes; that gate
+    also asks the TPU kernel's VMEM tiling to exist, which
+    ``dist.pallas_cycle3`` keeps as a layout rule)."""
+    return nplanes in (3, 4, 6) and supported_local3(shape, shape_c, steps,
+                                                     dtype, ghost)
 
 
-def var_prolong_smooth_ext3(*args, **kwargs):
-    """K2v_3 on a ghost-extended shard block: not ported yet."""
-    raise NotImplementedError("var_prolong_smooth_ext3: ghost-extended "
-                              "blocks (distributed solves) are not ported "
-                              "yet")
+def var_smooth_restrict_ext3_plain(u, b, coef, origin, n: int, shape_c,
+                                   sweeps: int, smoother: str = "jacobi",
+                                   omega=2.0 / 3.0, ghost=(16, 16)):
+    """K1v_3-ext's plain version: (u', the whole coarse block)."""
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    v = var_smooth3_plain(u, b, coef, n, steps, smoother, omega,
+                          origin=origin)
+    r = var_residual3_plain(v, b, coef, n, origin)
+    return v, restrict_ext3_plain(r, origin, n, shape_c[2], ghost)
+
+
+def var_prolong_smooth_ext3_plain(u, b, ec, coef, origin, n: int,
+                                  sweeps: int, smoother: str = "jacobi",
+                                  omega=2.0 / 3.0, ghost=(16, 16),
+                                  want_resnorm: bool = False):
+    """K2v_3-local's plain version: u', and with ``want_resnorm`` the owned
+    live cells' sum of (b - A u')^2."""
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    live = masks3(u.shape, n, u.device, origin)[0]
+    v = torch.where(live, u + prolong_ext3_plain(ec, u.shape, ghost), 0.0)
+    v = var_smooth3_plain(v, b, coef, n, steps, smoother, omega,
+                          origin=origin)
+    if want_resnorm:
+        return v, owned_sum_sq3(var_residual3_plain(v, b, coef, n, origin),
+                                ghost)
+    return v
+
+
+def _check_ext(entry, u, coef, shape_c, smoother, origin, sweeps, ghost):
+    steps = 2 * sweeps if smoother == "rbgs" else sweeps
+    shape = check_ext3(entry, u, shape_c, smoother, origin, steps, ghost)
+    if coef.dim() != 4 or coef.shape[0] not in (3, 4, 6) \
+            or tuple(coef.shape[1:]) != shape:
+        raise ValueError(f"{entry}: expected a (3, 4 or 6, *{shape}) "
+                         f"coefficient stack, got {tuple(coef.shape)}")
+    return shape
+
+
+def var_smooth_restrict_ext3(u, b, coef, origin, n: int, shape_c,
+                             sweeps: int, smoother: str = "jacobi",
+                             omega=2.0 / 3.0, ghost=(16, 16)):
+    """K1v_3-ext: (u after ``sweeps`` sweeps, the coarse block ``shape_c``
+    holding the restricted residual); ``coef`` the block's ghost-inclusive
+    (C, Rz, Ry, Sx) stack, ``origin`` its global (oz, oy), even host
+    ints."""
+    entry = "var_smooth_restrict_ext3"
+    shape_c = tuple(shape_c)
+    shape = _check_ext(entry, u, coef, shape_c, smoother, origin, sweeps,
+                       ghost)
+    if u.device.type == "cpu":
+        return var_smooth_restrict_ext3_plain(u, b, coef, origin, n, shape_c,
+                                              sweeps, smoother, omega, ghost)
+    _build.check_inputs(entry, (u, b, coef),
+                        (shape, shape, tuple(coef.shape)))
+    lib = _build.lib()
+    rbgs, plan = _plan(entry, lib, smoother, omega, sweeps, 2)
+    rc = torch.empty(shape_c, dtype=u.dtype, device=u.device)
+    geo = ext_args(shape, shape_c[2], n, origin, ghost)
+
+    def launch(i, src, out, first, k, ws, stream):
+        wt = var_weights3(ws)
+        rest = (*geo, k, first, rbgs, coef.shape[0], wt.ctypes.data,
+                wt.size // 2, stream)
+        if i < len(plan) - 1:      # a leading smoothing pass
+            return lib.tmt_var_prolong_smooth_ext3(
+                src.data_ptr(), b.data_ptr(), None, coef.data_ptr(),
+                out.data_ptr(), None, None, *rest)
+        return lib.tmt_var_smooth_restrict_ext3(
+            src.data_ptr(), b.data_ptr(), coef.data_ptr(), out.data_ptr(),
+            rc.data_ptr(), *rest)
+    return run_launches(entry, LAUNCHES, u, plan, launch), rc
+
+
+def var_prolong_smooth_ext3(u, b, ec, coef, origin, n: int, sweeps: int,
+                            smoother: str = "jacobi", omega=2.0 / 3.0,
+                            ghost=(16, 16), want_resnorm: bool = False):
+    """K2v_3-local: u <- var-smooth(where(live, u + P ec, 0), b); with
+    ``want_resnorm`` also the owned live cells' sum of (b - A u')^2 as a 0-d
+    float32 tensor, summed in a fixed order."""
+    entry = ("var_prolong_smooth_ext3_resnorm" if want_resnorm
+             else "var_prolong_smooth_ext3")
+    shape = _check_ext(entry, u, coef, ec.shape, smoother, origin, sweeps,
+                       ghost)
+    if u.device.type == "cpu":
+        return var_prolong_smooth_ext3_plain(u, b, ec, coef, origin, n,
+                                             sweeps, smoother, omega, ghost,
+                                             want_resnorm)
+    shape_c = tuple(ec.shape)
+    _build.check_inputs(entry, (u, b, ec, coef),
+                        (shape, shape, shape_c, tuple(coef.shape)))
+    lib = _build.lib()
+    rbgs, plan = _plan(entry, lib, smoother, omega, sweeps,
+                       int(want_resnorm))
+    partials = out_sum = None
+    if want_resnorm:
+        blocks = lib.tmt_prolong_smooth3_blocks(*shape, plan[-1][1])
+        partials = torch.empty(blocks, dtype=torch.float32, device=u.device)
+        out_sum = torch.empty((), dtype=torch.float32, device=u.device)
+    geo = ext_args(shape, shape_c[2], n, origin, ghost)
+
+    def launch(i, src, out, first, k, ws, stream):
+        wt = var_weights3(ws)
+        norm = want_resnorm and i == len(plan) - 1
+        return lib.tmt_var_prolong_smooth_ext3(
+            src.data_ptr(), b.data_ptr(), ec.data_ptr() if i == 0 else None,
+            coef.data_ptr(), out.data_ptr(),
+            partials.data_ptr() if norm else None,
+            out_sum.data_ptr() if norm else None, *geo, k, first, rbgs,
+            coef.shape[0], wt.ctypes.data, wt.size // 2, stream)
+    u_out = run_launches(entry, LAUNCHES, u, plan, launch)
+    return (u_out, out_sum) if want_resnorm else u_out
