@@ -1249,3 +1249,176 @@ def test_dist3_solvers_launch_the_kernels(gen, tmp_path):
                                        atol=1e-5 * scale)
     finally:
         tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The marching kernels where their geometry is new: the streaming smoother's
+# row march (csrc/stencil.cu) and K1v_3's z march (csrc/zmarch3.cuh)
+# ---------------------------------------------------------------------------
+
+def _rbgs_from(u, b, n, first, steps):
+    """RB-GS half-steps first .. first + steps - 1, half-step j updating
+    parity j % 2: the plain version's operations from any first step."""
+    red, black = ops._parity_masks(u.shape[-1], n, u.device)
+    v = u
+    for j in range(first, first + steps):
+        v = torch.where(black if j % 2 else red,
+                        0.25 * (b + ops.neighbor_sum(v)), v)
+    return v
+
+
+def _streamed_direct(u, b, n, steps, first, rbgs, ws, want_u, want_r):
+    """One tmt_streamed launch with the given first step: (u' or None,
+    r or None)."""
+    from tpu_multigrid_torch.kernels import _build
+    v = torch.empty_like(u) if want_u else None
+    r = torch.empty_like(u) if want_r else None
+    wt = stencil.step_weights(ws)
+    err = _build.lib().tmt_streamed(
+        u.data_ptr(), b.data_ptr(), None if v is None else v.data_ptr(),
+        None if r is None else r.data_ptr(), u.shape[-1], n, steps, first,
+        rbgs, wt.ctypes.data, wt.size // 2,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "tmt_streamed")
+    return v, r
+
+
+# Ragged sizes for the row march: S not a multiple of a warp's output strip
+# (120 columns at a halo of 4) or of its 128-row segment, odd row lengths
+# (S % 4 != 0: the copies and stores one column at a time), a grid smaller
+# than one strip.
+MARCH_SIZES = [(130, 120), (1000, 998), (1030, 1024), (2304, 2048)]
+
+
+@pytest.mark.parametrize("S,n", MARCH_SIZES)
+@pytest.mark.parametrize("label,sm,om,sweeps", STENCIL_CASES
+                         + [("rbgs1", "rbgs", None, 1),
+                            ("rbgs8", "rbgs", None, 8)])
+def test_row_march_all_entries_bitwise_at_ragged_sizes(gen, S, n, label, sm,
+                                                       om, sweeps):
+    """The five entries of the streaming smoother, bitwise over the whole
+    array, at sizes that are not whole strips or segments; deep smoothing
+    splits into launches of at most stencil_max_steps steps."""
+    from tpu_multigrid_torch.kernels import _build
+    u, b = _interior(S, n, gen), _interior(S, n, gen)
+    chunk = _build.lib().stencil_max_steps
+    steps = 2 * sweeps if sm == "rbgs" else sweeps
+    kernels.reset_launch_counts()
+    if sm == "rbgs":
+        got = [stencil.rbgs_sweeps(u, b, n, sweeps),
+               *stencil.rbgs_sweeps_residual(u, b, n, sweeps)]
+        want = [stencil.rbgs_sweeps_plain(u, b, n, sweeps),
+                *stencil.rbgs_sweeps_residual_plain(u, b, n, sweeps)]
+    else:
+        got = [stencil.jacobi_sweeps(u, b, n, om, sweeps),
+               *stencil.jacobi_sweeps_residual(u, b, n, om, sweeps)]
+        want = [stencil.jacobi_sweeps_plain(u, b, n, om, sweeps),
+                *stencil.jacobi_sweeps_residual_plain(u, b, n, om, sweeps)]
+    got.append(stencil.residual(u, b, n))
+    want.append(stencil.residual_plain(u, b, n))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), label
+    counts = kernels.launch_counts()
+    assert counts[f"{sm}_sweeps"] == -(-steps // chunk)
+    assert counts[f"{sm}_sweeps_residual"] == -(-steps // chunk)
+    assert counts["residual"] == 1
+
+
+@pytest.mark.parametrize("S,n", [(130, 120), (1030, 1024)])
+@pytest.mark.parametrize("first", [0, 1, 5, 16])
+@pytest.mark.parametrize("steps", [1, 4, 16])
+@pytest.mark.parametrize("outs", [(True, False), (False, True),
+                                  (True, True)])
+def test_row_march_rbgs_first_step_and_null_outputs(gen, S, n, first, steps,
+                                                    outs):
+    """One RB-GS launch beginning at an odd or even global half-step, with
+    u' or r left out (null), bitwise against the plain half-steps."""
+    u, b = _interior(S, n, gen), _interior(S, n, gen)
+    v, r = _streamed_direct(u, b, n, steps, first, 1, (1.0,), *outs)
+    want = _rbgs_from(u, b, n, first, steps)
+    if outs[0]:
+        assert torch.equal(v, want)
+    if outs[1]:
+        assert torch.equal(r, ops.residual(want, b, n))
+
+
+# A ragged 3D pair: extents that are not whole tiles (22 at a halo of 5) or
+# z-segments, live planes across segment boundaries, a coarse grid past S/2.
+ZMARCH_PAIR = ((130, 106, 100), (70, 54, 64), 96)
+ZMARCH_SMOOTHERS = [("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+                    ("jacobi", 2.0 / 3.0, 1), ("jacobi", 2.0 / 3.0, 0),
+                    ("jacobi", ops.chebyshev_omegas(9, 0.4), 9),
+                    ("rbgs", 1.0, 1), ("rbgs", 1.0, 2), ("rbgs", 1.0, 5),
+                    ("rbgs", 1.0, 6)]
+
+
+@pytest.mark.parametrize("nplanes", [3, 4, 6])
+@pytest.mark.parametrize("sm,om,sweeps", ZMARCH_SMOOTHERS)
+def test_zmarch_k1v3_bitwise_at_a_ragged_pair(gen, nplanes, sm, om, sweeps):
+    """K1v_3 (u' and the whole coarse grid, its tail included) bitwise at a
+    ragged pair: register-queued (up to 3 steps) and per-step coefficients
+    (4-9 steps, RB-GS (5, 5) and (6, 6) split into launches, the last
+    beginning at an even and an odd half-step), 3, 4 and 6 planes."""
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    shape, shape_c, n = ZMARCH_PAIR
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    coef = _planes3(nplanes, shape, gen)
+    kernels.reset_launch_counts()
+    ku, krc = VT3.var_smooth_restrict3(u, b, coef, n, shape_c, sweeps, sm, om)
+    pu, prc = VT3.var_smooth_restrict3_plain(u, b, coef, n, shape_c, sweeps,
+                                             sm, om)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    lib = _build.lib()
+    steps = 2 * sweeps if sm == "rbgs" else sweeps
+    ws = om if isinstance(om, tuple) else (om,)
+    plan = VT3.k1_plan(steps, ws, lib.zmarch3_max_halo, lib.window3_max_halo)
+    assert kernels.launch_counts()["var_smooth_restrict3"] == len(plan)
+
+
+@pytest.mark.parametrize("nplanes", [3, 6])
+@pytest.mark.parametrize("first", [1, 2, 3])
+@pytest.mark.parametrize("steps", [2, 3, 4])
+def test_zmarch_k1v3_rbgs_from_any_first_step(gen, nplanes, first, steps):
+    """One K1v_3 launch of RB-GS half-steps beginning at global half-step
+    ``first``, bitwise against the plain half-steps, residual and
+    restriction."""
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    shape, shape_c, n = ZMARCH_PAIR
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    coef = _planes3(nplanes, shape, gen)
+    out, rc = torch.empty_like(u), torch.empty(shape_c, device="cuda")
+    wt = VT3.var_weights3((1.0,))
+    err = _build.lib().tmt_var_smooth_restrict3(
+        u.data_ptr(), b.data_ptr(), coef.data_ptr(), out.data_ptr(),
+        rc.data_ptr(), *shape, *shape_c, n, steps, first, 1, nplanes,
+        wt.ctypes.data, 1, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "tmt_var_smooth_restrict3")
+    v = VT3.var_smooth3_plain(u, b, coef, n, steps, "rbgs", 1.0, first)
+    want_rc = T3.restrict3_plain(VT3.var_residual3_plain(v, b, coef, n), n,
+                                 shape_c)
+    assert torch.equal(out, v) and torch.equal(rc, want_rc)
+
+
+@pytest.mark.parametrize("nplanes", [3, 4, 6])
+@pytest.mark.parametrize("smoother,omega,sweeps", [("rbgs", 1.0, 2),
+                                                   ("rbgs", 1.0, 6),
+                                                   ("jacobi", 2.0 / 3.0, 0)])
+def test_zmarch_k1v3_ext_at_four_origins(gen, nplanes, smoother, omega,
+                                         sweeps):
+    """K1v_3-ext on the per-step-coefficient path (RB-GS (2, 2)), split with
+    an odd first half-step (RB-GS (6, 6)) and with no steps, bitwise over
+    the whole arrays at the four origins of a 2 x 2 shard block."""
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    u = torch.randn(EXT3_SHAPE, generator=gen, device="cuda")
+    b = torch.randn(EXT3_SHAPE, generator=gen, device="cuda")
+    coef = 0.5 + torch.rand((nplanes,) + EXT3_SHAPE, generator=gen,
+                            device="cuda")
+    for origin in EXT3_ORIGINS:
+        args = (u, b, coef, origin, EXT3_N, EXT3_SHAPE_C, sweeps, smoother,
+                omega)
+        ku, krc = VT3.var_smooth_restrict_ext3(*args)
+        pu, prc = VT3.var_smooth_restrict_ext3_plain(*args)
+        assert torch.equal(ku, pu) and torch.equal(krc, prc), origin

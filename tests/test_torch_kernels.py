@@ -193,10 +193,10 @@ def test_build_is_keyed_by_the_sources():
                      "local.cu", "localfas.cu", "localref.cu", "stencil.cu",
                      "stencil3d.cu", "transfer.cu", "transfer3d.cu",
                      "varstencil.cu", "vartransfer.cu", "vartransfer3d.cu",
-                     "compsum.cuh", "ext.cuh", "extvisit.cuh", "fasnl.cuh",
-                     "fasop2.cuh", "levelvisit.cuh", "levelvisit3.cuh",
-                     "twosum.cuh", "varwindow.cuh", "window.cuh",
-                     "window3.cuh"]
+                     "compsum.cuh", "cpasync.cuh", "ext.cuh", "extvisit.cuh",
+                     "fasnl.cuh", "fasop2.cuh", "levelvisit.cuh",
+                     "levelvisit3.cuh", "twosum.cuh", "varwindow.cuh",
+                     "window.cuh", "window3.cuh", "zmarch3.cuh"]
     d = _build.build_dir()
     assert d.parent.name == "build" and d.name.startswith("kernels-")
     assert _build.build_dir() == d

@@ -69,6 +69,7 @@ _SIGNATURES = {
     "tmt_var_prolong_smooth": ([_P] * 7 + [_I] * 6 + [_P, _I, _P], _I),
     "tmt_stencil3d_max_steps": ([], _I),
     "tmt_window3_max_halo": ([], _I),
+    "tmt_zmarch3_max_halo": ([], _I),
     # u, b, u_out, r_out, Sz, Sy, Sx, n, steps, first_step, rbgs, weights,
     # count, stream
     "tmt_streamed3": ([_P] * 4 + [_I] * 7 + [_P, _I, _P], _I),
@@ -223,7 +224,10 @@ def lib() -> ctypes.CDLL:
     memory), ``stencil_max_steps`` (the most steps of one streaming-
     smoother launch), ``var_tile`` (the var kernels' tile edge) and
     ``var_max_halo`` (nplanes -> the deepest halo of a var kernel's
-    window), ``zebra_max_line`` (the longest line a zebra block holds)."""
+    window), ``stencil3d_max_steps`` and ``window3_max_halo`` (the 3D
+    window's limits), ``zmarch3_max_halo`` (the deepest halo of one K1v_3
+    z-march launch), ``zebra_max_line`` (the longest line a zebra block
+    holds)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -242,6 +246,7 @@ def lib() -> ctypes.CDLL:
                                    for p in (5, 9)}
             handle.stencil3d_max_steps = handle.tmt_stencil3d_max_steps()
             handle.window3_max_halo = handle.tmt_window3_max_halo()
+            handle.zmarch3_max_halo = handle.tmt_zmarch3_max_halo()
             handle.zebra_max_line = handle.tmt_zebra_max_line()
             _lib = handle
     return _lib

@@ -46,8 +46,8 @@
 // tile at an even array origin loads the tile plus a halo of steps + 2 rings
 // (K1), steps + 1 (K2) or steps, one more with the residual (K0), into
 // shared memory, runs every step there and writes only the outputs.  K0 is
-// stencil.cu's streaming smoother on this geometry: 2 or 3 passes of R*C*4
-// bytes against 8*steps (or 6) flops per cell.
+// the streaming smoother in window.cuh's form on this geometry: 2 or 3
+// passes of R*C*4 bytes against 8*steps (or 6) flops per cell.
 //
 // Arithmetic: the TPU kernels' operations in their order (kernels/
 // local.py, transfer.py::_fw_aggregate and ::_bilinear_prolong), built with

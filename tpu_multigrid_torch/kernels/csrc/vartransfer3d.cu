@@ -19,23 +19,32 @@
 // 3, 4 or 6 coefficient planes of the fine cube: 6 to 9 passes of it,
 // against ~25 flops per node and step.
 //
-// What the design does about it: the level-visit kernels of
-// levelvisit3.cuh on window3.cuh's 24^2 x 32 window, whose u, double buffer
-// and b fill 216 KB of shared memory; the coefficient planes do not fit
-// beside them, so every step reads a node's planes through the read-only
-// path (__ldg), constant over the steps and served from L1/L2 after the
-// window's first step.  The minus-direction transmissibilities are the
-// stored planes one node back (tz at z-1, ty at y-1, tx at x-1), read at
-// live nodes only; on a ghost-extended block a live node may sit on the
-// array's first plane or row, whose node one back lies outside the array
-// and couples with 0.  A halo deeper than the window's kMaxHalo3 is split
-// across launches by the wrapper, as for K1_3 / K2_3.
+// What the design does about it.  K1v_3 runs on zmarch3.cuh's z march: a
+// 32 x 64 (y, x) window (32 x 32 past 5 steps) marching through a
+// z-segment, the steps, residual and restriction a wavefront over the
+// planes, each node updated once per step plus the xy halo, u and b
+// arriving by cp.async a plane ahead, the couplings read per step through
+// L1.  Its window of 24^2 x 32 in levelvisit3.cuh loaded 4.3x the cells it
+// wrote at Chebyshev 3 and ran every step over all of them at one block per
+// SM.  K2v_3 stays on levelvisit3.cuh's K2 template on window3.cuh's
+// window, whose u, double buffer and b fill 216 KB of shared memory; the
+// coefficient planes do not fit beside them, so every step reads a node's
+// planes through the read-only path (__ldg), constant over the steps and
+// served from L1/L2 after the window's first step.  The minus-direction
+// transmissibilities are the stored planes one node back (tz at z-1, ty at
+// y-1, tx at x-1), read at live nodes only; on a ghost-extended block a
+// live node may sit on the array's first plane or row, whose node one back
+// lies outside the array and couples with 0.  A halo deeper than a launch
+// holds (kZMaxHalo for K1v_3, kMaxHalo3 for K2v_3, both 11) is split across
+// launches by the wrapper, as for K1_3 / K2_3: K1v_3's leading steps run as
+// K2v_3 passes.
 //
 // The ghost-extended forms (tmt_var_smooth_restrict_ext3,
 // tmt_var_prolong_smooth_ext3: K1v_3-ext and K2v_3-local, replacing the
 // Pallas kernels' origin / ghost variants, ::_var_smooth_restrict3 with
 // `origin` and ::_var_prolong_smooth_local3) are the same templates on a
-// block's grids (levelvisit3.cuh), the coefficient stack ghost-inclusive.
+// block's grids (levelvisit3.cuh's ext_grids3), the coefficient stack
+// ghost-inclusive.
 //
 // Arithmetic: the Pallas kernels' order (_expand_t3 / _expand_dir3 and
 // _offdiag3), which kernels/vartransfer3d.py's plain versions repeat:
@@ -49,6 +58,7 @@
 // Built with -fmad=false: u', rc match the plain versions bitwise.
 
 #include "levelvisit3.cuh"
+#include "zmarch3.cuh"
 
 namespace {
 
@@ -60,6 +70,50 @@ struct VarOp3 {
   const float* __restrict__ coef;
   size_t plane;
   int Sy, Sx;
+
+  // The z march's view of a live node (zmarch3.cuh): its couplings to x+,
+  // x-, y+, y-, z+, z- (c2 the reaction with 4 planes) and the inverse of
+  // its diagonal, and the steps on a given neighbourhood, in terms()'s
+  // order.  terms() below is the window's (K2v_3) form.
+  struct Coef {
+    float px, mx, py, my, pz, mz, c2, invd;
+  };
+
+  __device__ __forceinline__ Coef load(int gz, int gy, int gx) const {
+    const size_t o = (static_cast<size_t>(gz) * Sy + gy) * Sx + gx;
+    const float* c = coef;
+    Coef k{};
+    if (P == 6) {
+      k.pz = __ldg(c + o);
+      k.py = __ldg(c + plane + o);
+      k.px = __ldg(c + 2 * plane + o);
+      k.mz = __ldg(c + 3 * plane + o);
+      k.my = __ldg(c + 4 * plane + o);
+      k.mx = __ldg(c + 5 * plane + o);
+    } else {
+      k.pz = __ldg(c + o);
+      k.mz = gz > 0 ? __ldg(c + o - static_cast<size_t>(Sy) * Sx) : 0.0f;
+      k.py = __ldg(c + plane + o);
+      k.my = gy > 0 ? __ldg(c + plane + o - Sx) : 0.0f;
+      k.px = __ldg(c + 2 * plane + o);
+      k.mx = gx > 0 ? __ldg(c + 2 * plane + o - 1) : 0.0f;
+      if (P == 4) k.c2 = __ldg(c + 3 * plane + o);
+    }
+    return k;
+  }
+
+  __device__ __forceinline__ static float diag_of(const Coef& k) {
+    const float d = ((k.pz + k.mz) + (k.py + k.my)) + (k.px + k.mx);
+    return P == 4 ? d + k.c2 : d;
+  }
+
+  __device__ __forceinline__ static float off_of(const Coef& k, float xp,
+                                                 float xm, float yp, float ym,
+                                                 float zp, float zm) {
+    return ((((k.px * xp + k.mx * xm) + k.py * yp) + k.my * ym) +
+            k.pz * zp) +
+           k.mz * zm;
+  }
 
   __device__ __forceinline__ void terms(const float* v, int k, int gz, int gy,
                                         int gx, float& diag,
@@ -116,6 +170,33 @@ struct VarOp3 {
     terms(v, k, gz, gy, gx, diag, off);
     return (bw[k] - diag * v[k]) + off;
   }
+
+  __device__ __forceinline__ Coef couplings(int gz, int gy, int gx) const {
+    Coef c = load(gz, gy, gx);
+    c.invd = inverse(diag_of(c));
+    return c;
+  }
+
+  __device__ __forceinline__ static float off_n(const Coef& c,
+                                                const ZNbrs& n) {
+    return off_of(c, n.xp, n.xm, n.yp, n.ym, n.zp, n.zm);
+  }
+
+  __device__ __forceinline__ float jacobi_n(const Coef& c, const ZNbrs& n,
+                                            float b, float c1,
+                                            float c2) const {
+    return c1 * n.v + (c2 * c.invd) * (b + off_n(c, n));
+  }
+
+  __device__ __forceinline__ float gs_n(const Coef& c, const ZNbrs& n,
+                                        float b) const {
+    return c.invd * (b + off_n(c, n));
+  }
+
+  __device__ __forceinline__ float residual_n(const Coef& c, const ZNbrs& n,
+                                              float b) const {
+    return (b - diag_of(c) * n.v) + off_n(c, n);
+  }
 };
 
 template <int P>
@@ -128,35 +209,32 @@ VarOp3<P> var_op(const void* coef, const Grid3& g) {
   return op;
 }
 
-// One K1v_3 launch on the grids g / gc.
+// One K1v_3 launch on the grids g / gc: the z-march of zmarch3.cuh.
 cudaError_t var_smooth_restrict3_on(const void* u, const void* b,
                                     const void* coef, void* u_out, void* rc,
                                     const Grid3& g, const Grid3& gc,
                                     int steps, int first_step, int rbgs,
                                     int nplanes, const void* weights,
                                     int count, void* stream) {
-  Weights wt;
-  cudaError_t err =
-      make_weights(static_cast<const float*>(weights), count, &wt);
-  if (err != cudaSuccess) return err;
   const float* uu = static_cast<const float*>(u);
   const float* bb = static_cast<const float*>(b);
+  const float* ww = static_cast<const float*>(weights);
   float* out = static_cast<float*>(u_out);
   float* rcc = static_cast<float*>(rc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nplanes) {
     case 3:
-      return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
-                                     first_step, rbgs, wt,
-                                     var_op<3>(coef, g), st);
+      return launch_zmarch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
+                                            first_step, rbgs, ww, count,
+                                            var_op<3>(coef, g), st);
     case 4:
-      return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
-                                     first_step, rbgs, wt,
-                                     var_op<4>(coef, g), st);
+      return launch_zmarch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
+                                            first_step, rbgs, ww, count,
+                                            var_op<4>(coef, g), st);
     case 6:
-      return launch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
-                                     first_step, rbgs, wt,
-                                     var_op<6>(coef, g), st);
+      return launch_zmarch_smooth_restrict3(uu, bb, out, rcc, g, gc, steps,
+                                            first_step, rbgs, ww, count,
+                                            var_op<6>(coef, g), st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -203,6 +281,10 @@ cudaError_t var_prolong_smooth3_on(const void* u, const void* b,
 }  // namespace
 
 extern "C" {
+
+// The deepest halo (steps + 2) of one K1v_3 launch: deeper smoothing runs
+// its leading steps as K2v_3 passes alone (the wrapper's split plan).
+int tmt_zmarch3_max_halo(void) { return kZMaxHalo; }
 
 // coef: (nplanes, Sz, Sy, Sx) float32, nplanes 3, 4 or 6.  weights: host
 // array [c1[0..count), c2[0..count)] with c1 = 1 - w, c2 = w (unused by

@@ -1,9 +1,11 @@
-// Shared-memory window machinery of the stencil kernels (stencil.cu) and of
-// K1/K2 (transfer.cu): a block owns one kTile x kTile output tile, loads it
-// with a halo of rings into shared memory, and runs its smoothing steps there
-// (ghost-zone temporal blocking: each step invalidates one ring of the
-// window, and the halo is deep enough that no invalid cell reaches an
-// output).
+// Shared-memory window machinery of K1/K2 (transfer.cu) and of the kernels
+// built on them (local.cu, fas.cu, localfas.cu, levelvisit.cuh's users; the
+// streaming smoother, stencil.cu, marches down rows instead and takes only
+// the constants and allow_smem here): a block owns one kTile x kTile output
+// tile, loads it with a halo of rings into shared memory, and runs its
+// smoothing steps there (ghost-zone temporal blocking: each step invalidates
+// one ring of the window, and the halo is deep enough that no invalid cell
+// reaches an output).
 //
 // Arithmetic: the same operations in the same order as the plain torch
 // versions (tpu_multigrid_torch/core/ops.py), built with -fmad=false so that

@@ -1,11 +1,13 @@
 // Shared-memory window machinery of the 3D kernels (stencil3d.cu, and
-// through levelvisit3.cuh transfer3d.cu and vartransfer3d.cu): a block loads
+// through levelvisit3.cuh transfer3d.cu, fas3d.cu and vartransfer3d.cu's
+// K2v_3; K1v_3 marches through z instead, zmarch3.cuh): a block loads
 // a fixed kW3yz x kW3yz x kW3x window (z, y, x) of the grid into shared
-// memory, runs its smoothing steps there and writes the tile that lies `halo` cells inside the window's faces (ghost-
-// zone temporal blocking: each step invalidates one layer of the window, and
-// the halo is deep enough that no invalid cell reaches an output).  The
-// window is fixed and the tile shrinks with the halo: (kW3yz - 2 halo)^2 x
-// (kW3x - 2 halo) outputs per block.
+// memory, runs its smoothing steps there and writes the tile that lies
+// `halo` cells inside the window's faces (ghost-zone temporal blocking:
+// each step invalidates one layer of the window, and the halo is deep
+// enough that no invalid cell reaches an output).  The window is fixed
+// and the tile shrinks with the halo: (kW3yz - 2 halo)^2 x (kW3x - 2 halo)
+// outputs per block.
 //
 // Layout: one warp spans a window row along x (kW3x = 32 lanes), so every
 // global load and store of a row is one coalesced access; the 16 warps of a
@@ -13,7 +15,7 @@
 // double buffer, b) take 216 KB: one block per SM.
 //
 // The smoothing loop is generic in the operator (ConstOp3 here, VarOp3 in
-// vartransfer3d.cu), which it calls at interior nodes only.
+// vartransfer3d.cu for K2v_3), which it calls at interior nodes only.
 //
 // Arithmetic: the Pallas kernels' order (tpu_multigrid/kernels/
 // stencil3d.py), which the plain versions in kernels/stencil3d.py repeat,
