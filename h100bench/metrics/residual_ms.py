@@ -1,0 +1,17 @@
+"""residual_ms: the device milliseconds per solve of the compensated
+residual over the traced window: the CUDA-event times of every
+``residual`` span (``precision``'s ds and ts residuals, through the
+kernel or in plain torch, those inside ``cycle_ds`` too), summed and
+divided by the window's solves."""
+
+import progspans
+
+
+def read(run):
+    w = progspans.of(run)
+    if w is None:
+        return None
+    times = [s.device_ms for s in w.named("residual")]
+    if not times or None in times:
+        return None
+    return sum(times) / w.solves

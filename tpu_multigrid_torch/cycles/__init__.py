@@ -35,6 +35,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import MultigridConfig
 from ..core import ops, ops3d
 from ..core.grids import Hierarchy, coarse_solve
@@ -562,16 +563,19 @@ class SolveResult:
 def solve_fixed(hier: Hierarchy, cfg: MultigridConfig, b, num_cycles: int,
                 u0=None) -> SolveResult:
     """Run exactly ``num_cycles`` cycles, recording the residual history."""
-    op = hier.levels[0]
-    u = u0 if u0 is not None else _zeros(op, b)
-    hist = torch.full((num_cycles + 1,), float("nan"), dtype=torch.float32,
-                      device=b.device)
-    hist[0] = ops.norm2(op.residual(u, b))
-    for i in range(num_cycles):
-        u, rnorm = cycle_with_norm(hier, cfg, u, b)
-        hist[i + 1] = rnorm
-    return SolveResult(u=u, res_history=hist.cpu(), iterations=num_cycles,
-                       converged=True)
+    with tracing.solve() as root:
+        op = hier.levels[0]
+        u = u0 if u0 is not None else _zeros(op, b)
+        hist = torch.full((num_cycles + 1,), float("nan"),
+                          dtype=torch.float32, device=b.device)
+        hist[0] = ops.norm2(op.residual(u, b))
+        for i in range(num_cycles):
+            with tracing.span("cycle", b):
+                u, rnorm = cycle_with_norm(hier, cfg, u, b)
+            hist[i + 1] = rnorm
+        root.set(iterations=num_cycles)
+        return SolveResult(u=u, res_history=tracing.sync(hist, "history"),
+                           iterations=num_cycles, converged=True)
 
 
 def solve_until_tol(hier: Hierarchy, cfg: MultigridConfig, b, *, tol: float,
@@ -587,22 +591,25 @@ def solve_until_tol(hier: Hierarchy, cfg: MultigridConfig, b, *, tol: float,
     ``converged=False``.  Decisions are taken in float32, as the JAX driver
     takes them.
     """
-    op = hier.levels[0]
-    u = u0 if u0 is not None else _zeros(op, b)
-    r0 = np.float32(ops.norm2(op.residual(u, b)).item())
-    rbase = np.float32(r0_norm) if r0_norm is not None else r0
-    target = np.float32(tol) * rbase if relative else np.float32(tol)
-    target = max(target, np.float32(0.0))
-    sf = np.float32(stall_factor)
-    hist = np.full((max_cycles + 1,), np.nan, np.float32)
-    hist[0] = r0
-    i, rnorm, stalls = 0, r0, 0
-    while i < max_cycles and rnorm > target and stalls < 2:
-        u, rnew_t = cycle_with_norm(hier, cfg, u, b)
-        rnew = np.float32(rnew_t.item())
-        hist[i + 1] = rnew
-        stalls = stalls + 1 if rnew > sf * rnorm else 0
-        rnorm = rnew
-        i += 1
-    return SolveResult(u=u, res_history=torch.from_numpy(hist), iterations=i,
-                       converged=bool(rnorm <= target))
+    with tracing.solve() as root:
+        op = hier.levels[0]
+        u = u0 if u0 is not None else _zeros(op, b)
+        r0 = np.float32(tracing.sync(ops.norm2(op.residual(u, b)), "norm"))
+        rbase = np.float32(r0_norm) if r0_norm is not None else r0
+        target = np.float32(tol) * rbase if relative else np.float32(tol)
+        target = max(target, np.float32(0.0))
+        sf = np.float32(stall_factor)
+        hist = np.full((max_cycles + 1,), np.nan, np.float32)
+        hist[0] = r0
+        i, rnorm, stalls = 0, r0, 0
+        while i < max_cycles and rnorm > target and stalls < 2:
+            with tracing.span("cycle", b):
+                u, rnew_t = cycle_with_norm(hier, cfg, u, b)
+            rnew = np.float32(tracing.sync(rnew_t, "norm"))
+            hist[i + 1] = rnew
+            stalls = stalls + 1 if rnew > sf * rnorm else 0
+            rnorm = rnew
+            i += 1
+        root.set(iterations=i)
+        return SolveResult(u=u, res_history=torch.from_numpy(hist),
+                           iterations=i, converged=bool(rnorm <= target))

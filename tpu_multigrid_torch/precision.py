@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import MultigridConfig
 from .core import ops, ops3d
 from .core.grids import Hierarchy
@@ -55,9 +56,10 @@ def _quick_two_sum(a, b):
 
 def ds_add(hi, lo, y):
     """(hi + lo) + y in double-single form (y a plain f32 array)."""
-    s, e = _two_sum(hi, y)
-    lo2 = lo + e
-    return _quick_two_sum(s, lo2)
+    with tracing.span("accumulate", hi, kind="ds"):
+        s, e = _two_sum(hi, y)
+        lo2 = lo + e
+        return _quick_two_sum(s, lo2)
 
 
 def _neighbor_sum_compensated(u):
@@ -156,15 +158,19 @@ def _ds_residual_d(b, u_hi, u_lo, n, use_kernels):
     (the kernel is 2D only: a 3D grid's last side must not reach it)."""
     if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
                                                          b.dtype):
-        return compres.ds_residual(b, u_hi, u_lo, n)
-    return ds_residual(b, u_hi, u_lo, n)
+        with tracing.span("residual", b, path="kernel"):
+            return compres.ds_residual(b, u_hi, u_lo, n)
+    with tracing.span("residual", b, path="plain"):
+        return ds_residual(b, u_hi, u_lo, n)
 
 
 def _ts_residual_d(b, u_hi, u_mid, u_lo, n, use_kernels):
     if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
                                                          b.dtype):
-        return compres.ts_residual(b, u_hi, u_mid, u_lo, n)
-    return ts_residual(b, u_hi, u_mid, u_lo, n)
+        with tracing.span("residual", b, path="kernel"):
+            return compres.ts_residual(b, u_hi, u_mid, u_lo, n)
+    with tracing.span("residual", b, path="plain"):
+        return ts_residual(b, u_hi, u_mid, u_lo, n)
 
 
 def prolong_comp(ec, nc: int, Sf: int):
@@ -291,10 +297,11 @@ def _ts_renorm(a, b, c):
 
 def ts_add(hi, mid, lo, y):
     """(hi + mid + lo) + y in triple-single form (y a plain f32 array)."""
-    s1, e1 = _two_sum(hi, y)
-    s2, e2 = _two_sum(mid, e1)
-    s3 = lo + e2
-    return _ts_renorm(s1, s2, s3)
+    with tracing.span("accumulate", hi, kind="ts"):
+        s1, e1 = _two_sum(hi, y)
+        s2, e2 = _two_sum(mid, e1)
+        s3 = lo + e2
+        return _ts_renorm(s1, s2, s3)
 
 
 class _RefinementLoop:
@@ -354,24 +361,28 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
     norms, NaN-padded; stop rules as :func:`solve_refined_ds`.
     """
     _check_modes(tol, num_cycles)
-    op = hier.levels[0]
-    u_hi = _zeros(op, b)
-    u_mid = torch.zeros_like(u_hi)
-    u_lo = torch.zeros_like(u_hi)
-    r = b
-    loop = _RefinementLoop(ops.norm2(r).item(), tol, stall_factor,
-                           num_cycles, max_iters)
-    while loop.running():
-        if ds_levels > 0:
-            e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
-            u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_hi)
-            u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_lo)
-        else:
-            e = cycle(hier, cfg, torch.zeros_like(r), r)
-            u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e)
-        r = _ts_residual_d(b, u_hi, u_mid, u_lo, op.n, cfg.use_kernels)
-        loop.record(ops.norm2(r).item())
-    return (u_hi, u_mid, u_lo) + loop.outcome()
+    with tracing.solve() as root:
+        op = hier.levels[0]
+        u_hi = _zeros(op, b)
+        u_mid = torch.zeros_like(u_hi)
+        u_lo = torch.zeros_like(u_hi)
+        r = b
+        loop = _RefinementLoop(tracing.sync(ops.norm2(r), "norm"), tol,
+                               stall_factor, num_cycles, max_iters)
+        while loop.running():
+            if ds_levels > 0:
+                with tracing.span("cycle", r):
+                    e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
+                u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_hi)
+                u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_lo)
+            else:
+                with tracing.span("cycle", r):
+                    e = cycle(hier, cfg, torch.zeros_like(r), r)
+                u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e)
+            r = _ts_residual_d(b, u_hi, u_mid, u_lo, op.n, cfg.use_kernels)
+            loop.record(tracing.sync(ops.norm2(r), "norm"))
+        root.set(iterations=loop.i)
+        return (u_hi, u_mid, u_lo) + loop.outcome()
 
 
 def solve_refined(hier: Hierarchy, cfg: MultigridConfig, b, *,
@@ -413,26 +424,30 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
         raise NotImplementedError("inner_dtype (a narrow inner cycle) is not "
                                   "ported yet")
     _check_modes(tol, num_cycles)
-    op = hier.levels[0]
-    if u0 is not None:
-        u_hi = u0.to(b.dtype)
-        u_lo = (u0_lo.to(b.dtype) if u0_lo is not None
-                else torch.zeros_like(u_hi))
-        r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
-    else:
-        u_hi = _zeros(op, b)
-        u_lo = torch.zeros_like(u_hi)
-        r = b
-    loop = _RefinementLoop(ops.norm2(r).item(), tol, stall_factor,
-                           num_cycles, max_iters, r0_norm)
-    while loop.running():
-        if ds_levels > 0:
-            e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
-            u_hi, u_lo = ds_add(u_hi, u_lo, e_hi)
-            u_hi, u_lo = ds_add(u_hi, u_lo, e_lo)
+    with tracing.solve() as root:
+        op = hier.levels[0]
+        if u0 is not None:
+            u_hi = u0.to(b.dtype)
+            u_lo = (u0_lo.to(b.dtype) if u0_lo is not None
+                    else torch.zeros_like(u_hi))
+            r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
         else:
-            e = cycle(hier, cfg, torch.zeros_like(r), r)
-            u_hi, u_lo = ds_add(u_hi, u_lo, e)
-        r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
-        loop.record(ops.norm2(r).item())
-    return (u_hi, u_lo) + loop.outcome()
+            u_hi = _zeros(op, b)
+            u_lo = torch.zeros_like(u_hi)
+            r = b
+        loop = _RefinementLoop(tracing.sync(ops.norm2(r), "norm"), tol,
+                               stall_factor, num_cycles, max_iters, r0_norm)
+        while loop.running():
+            if ds_levels > 0:
+                with tracing.span("cycle", r):
+                    e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
+                u_hi, u_lo = ds_add(u_hi, u_lo, e_hi)
+                u_hi, u_lo = ds_add(u_hi, u_lo, e_lo)
+            else:
+                with tracing.span("cycle", r):
+                    e = cycle(hier, cfg, torch.zeros_like(r), r)
+                u_hi, u_lo = ds_add(u_hi, u_lo, e)
+            r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
+            loop.record(tracing.sync(ops.norm2(r), "norm"))
+        root.set(iterations=loop.i)
+        return (u_hi, u_lo) + loop.outcome()
