@@ -47,7 +47,10 @@ Phases, each printing its own lines:
    kernels against their plain versions, bitwise, at (528, 528, 640) /
    (272, 272, 384) and (48, 48, 128) / (32, 32, 128), Chebyshev (3, 2) and
    RB-GS (1, 1), 7-point and 19-point weights (K2_3-resnorm's norm to
-   1e-4); then six paths, each with exact launch counts: the default
+   1e-4), and the ds / ts compensated residuals (ds_residual3,
+   ts_residual3) at each smoother shape; then six paths, each with exact
+   launch counts (the refined ones with one ds_residual3 an iteration): the
+   default
    solve_poisson3d(9) (it stops at the f32 floor) on both paths; the
    refined solve to 1e-8 on both paths (iterations, seconds with set-up,
    peak device memory, an independent float64 residual of u_hi + u_lo);
@@ -1087,11 +1090,14 @@ def problem3(cfg, order=2):
 def phase_kernels3d(errs):
     """The 3D kernels against their plain versions: the streaming smoother
     (Chebyshev 3 and 2, RB-GS 1, with and without the residual, the residual
-    alone) at each shape of ``SMOOTH3``, and K1_3 / K2_3 / K2_3-resnorm on
+    alone) and the ds / ts compensated residuals at each shape of
+    ``SMOOTH3``, and K1_3 / K2_3 / K2_3-resnorm on
     the 7-point stencil and the 19-point weights at each pair of ``PAIRS3``,
     bitwise; the norm to 1e-4."""
+    from tpu_multigrid_torch import precision
     from tpu_multigrid_torch.core import ops
     from tpu_multigrid_torch.core.operators import Const19Op
+    from tpu_multigrid_torch.kernels import compres
     from tpu_multigrid_torch.kernels import stencil3d as K3
     from tpu_multigrid_torch.kernels import transfer3d as T3
     gen = torch.Generator(device=DEVICE)
@@ -1111,7 +1117,17 @@ def phase_kernels3d(errs):
                 track(errs, name, g, w)
         print(f"[kernels3d] {shape} n={n}: streaming smoother (Chebyshev "
               f"3/2, RB-GS 1, residual) bitwise equal")
-        del u, b
+        # The compensated residuals (u_mid ~1e-8, u_lo ~1e-16, b ~h^2).
+        bh = interior_randn3(shape, n, gen, 1.0 / n ** 2)
+        um = interior_randn3(shape, n, gen, 1e-8)
+        ul = interior_randn3(shape, n, gen, 1e-16)
+        track(errs, "ds_residual3", compres.ds_residual3(bh, u, um, n),
+              precision.ds_residual(bh, u, um, n))
+        track(errs, "ts_residual3", compres.ts_residual3(bh, u, um, ul, n),
+              precision.ts_residual(bh, u, um, ul, n))
+        print(f"[kernels3d] {shape} n={n}: ds_residual3, ts_residual3 "
+              f"bitwise equal")
+        del u, b, bh, um, ul
     for shape, shape_c, n in PAIRS3:
         u, b = interior_randn3(shape, n, gen), interior_randn3(shape, n, gen)
         ec = interior_randn3(shape_c, n // 2, gen)
@@ -1267,7 +1283,7 @@ def phase_slice3d():
     out, secs, peak, rel = drive("refined3d-9", lambda: run_refined3(True))
     it = out[3]
     got = PATH_COUNTS["refined3d-9"]
-    want = counts3(it, resnorm=False)
+    want = dict(counts3(it, resnorm=False), ds_residual3=it)
     check(got == want, f"refined 3D launches {got}, expected {want}")
     summary = {"iterations": it, "seconds": secs, "peak_gib": peak / 2 ** 30,
                "f64_rel_residual": rel}
@@ -1361,7 +1377,8 @@ def phase_slice3d():
     out5, _, _, rel5 = drive("refined3d-5", lambda: run_refined3(True, 5,
                                                                 1e-10))
     got = PATH_COUNTS["refined3d-5"]
-    want = counts3(out5[3], fused=0, unfused=2, resnorm=False)
+    want = dict(counts3(out5[3], fused=0, unfused=2, resnorm=False),
+                ds_residual3=out5[3])
     check(got == want, f"refined level-5 launches {got}, expected {want}")
     m = 31
     one = sp.identity(m)
@@ -4067,8 +4084,10 @@ def dist3_times(card, times, work):
 # the 19-point stencil's Jacobi step (18 multiplies, 17 adds, and 4); the
 # 3D full weighting per coarse node (9 x-blurs, 3 y-blurs, 1 z-blur of 3
 # each, a halving: 40); trilinear prolongation plus the add per fine node
-# (7 on average).
+# (7 on average); the 7-point ds / ts compensated residuals (97 / 180,
+# TwoSum = 6: compsum.cuh's ds_resid3 / ts_resid3).
 JAC3, HALF3, RES3, JAC19, FW3, PRO3 = 9, 3.5, 8, 39, 40, 7
+DS3, TS3 = 97, 180
 
 
 def times3d(card, times, work):
@@ -4149,16 +4168,28 @@ def times3d(card, times, work):
     print(f"[times] smooth_restrict3 19-point     {shape}: kernel {k19:.3f} "
           f"ms, bound {bms:.3f} ms ({by})  ({card})")
     del cases
-    # The refinement loop's other steps stay plain torch on both paths (the
-    # JAX package has no 3D compensated-residual kernel): one ds residual
-    # and one ds_add per refined iteration.
+    # The refinement loop's other steps: one ds residual (a kernel that
+    # replaces no TPU kernel: the JAX package evaluates it in jnp) and one
+    # ds_add (plain torch) per refined iteration.
     from tpu_multigrid_torch import precision
+    from tpu_multigrid_torch.kernels import compres
     lo = interior_randn3(shape, n, gen, 1e-7)
-    for name, fn in (("ds_residual3", lambda: precision.ds_residual(
-            b, u, lo, n)), ("ds_add3", lambda: precision.ds_add(u, lo, b))):
-        times[name] = cuda_ms(fn)
-        print(f"[times] {name:27s} {shape}: plain torch only "
-              f"{times[name]:.3f} ms  ({card})")
+    for name, kern, plain, arrays in (
+            ("ds_residual3", lambda: compres.ds_residual3(b, u, lo, n),
+             lambda: precision.ds_residual(b, u, lo, n), 2),
+            ("ts_residual3", lambda: compres.ts_residual3(b, u, lo, lo, n),
+             lambda: precision.ts_residual(b, u, lo, lo, n), 3)):
+        times[name] = (cuda_ms(kern), cuda_ms(plain))
+        k, p = times[name]
+        bms, by = bound(4 * (inner + arrays * reach + cells),
+                        (DS3 if arrays == 2 else TS3) * inner)
+        full, _ = bound(4 * (arrays + 2) * cells, 0)
+        print(f"[times] {name:27s} {shape}: kernel {k:.3f} ms, plain {p:.3f} "
+              f"ms, bound {bms:.3f} ms ({by}; {full:.3f} ms on full "
+              f"arrays)  ({card})")
+    times["ds_add3"] = cuda_ms(lambda: precision.ds_add(u, lo, b))
+    print(f"[times] {'ds_add3':27s} {shape}: plain torch only "
+          f"{times['ds_add3']:.3f} ms  ({card})")
     del u, b, ec, lo
     torch.cuda.empty_cache()
 

@@ -153,12 +153,83 @@ def test_refinement_pieces_match_jax_f64(grids64):
 
 def test_ds_residual_never_reaches_the_2d_kernel():
     """A 3D grid whose last side the 2D compensated-residual kernel would
-    take (Sx = 256, level 7) stays on the 3D plain version."""
+    take (Sx = 256, level 7) reaches the 3D entry, never the 2D one: on the
+    CPU the 3D entry returns the 3D plain version."""
     b = torch.zeros((144, 144, 256))
     b[1:128, 1:128, 1:128] = 1.0
     r = precision._ds_residual_d(b, b, torch.zeros_like(b), 128, True)
     assert torch.equal(r, precision.ds_residual(b, b, torch.zeros_like(b),
                                                 128))
+
+
+def _components3(shape, n, seed):
+    """b ~h^2, u_hi O(1), u_mid ~1e-8, u_lo ~1e-16 (float32), and noise
+    outside the interior, which only masked nodes may see."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for scale in (1.0 / n ** 2, 1.0, 1e-8, 1e-16):
+        a = _interior(shape, n, rng) + 0.1 * rng.standard_normal(shape)
+        out.append(torch.tensor(scale * a, dtype=torch.float32))
+    return out
+
+
+@pytest.mark.parametrize("shape,n", [((48, 48, 128), 32), ((20, 24, 136), 17)])
+def test_residual3_entries_on_cpu_are_the_plain_versions(shape, n):
+    from tpu_multigrid_torch.kernels import compres
+    b, uh, um, ul = _components3(shape, n, 3)
+    assert torch.equal(compres.ds_residual3(b, uh, um, n),
+                       precision.ds_residual(b, uh, um, n))
+    assert torch.equal(compres.ts_residual3(b, uh, um, ul, n),
+                       precision.ts_residual(b, uh, um, ul, n))
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_residual3_dispatch_on_cpu_equals_the_plain_versions(use_kernels):
+    b, uh, um, ul = _components3((48, 48, 128), 32, 4)
+    assert torch.equal(precision._ds_residual_d(b, uh, um, 32, use_kernels),
+                       precision.ds_residual(b, uh, um, 32))
+    assert torch.equal(
+        precision._ts_residual_d(b, uh, um, ul, 32, use_kernels),
+        precision.ts_residual(b, uh, um, ul, 32))
+
+
+@pytest.mark.parametrize("driver,ds_levels", [("ds", 0), ("ds", 2),
+                                              ("ts", 2)])
+def test_refined3d_calls_the_3d_residual_entries(monkeypatch, driver,
+                                                 ds_levels):
+    """With kernels on, every compensated residual of a 3D refined solve
+    goes to the 3D entries (one per ds level and iteration, plus the outer
+    one), none to the 2D entries; with kernels off, none at all."""
+    from tpu_multigrid_torch.kernels import compres
+    calls = dict.fromkeys(["ds_residual", "ts_residual", "ds_residual3",
+                           "ts_residual3"], 0)
+    for name in calls:
+        def spy(*a, _fn=getattr(compres, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(compres, name, spy)
+    _, ct = _configs(6, use_kernels=True)
+    p6 = tmg.Poisson3DProblem(ct, align=16, min_pad_level=0, lane_align=128,
+                              device="cpu")
+    for cfg in (ct, dataclasses.replace(ct, use_kernels=False)):
+        for k in calls:
+            calls[k] = 0
+        if driver == "ds":
+            out = precision.solve_refined_ds(p6.hierarchy, cfg, p6.rhs(),
+                                             num_cycles=2, tol=None,
+                                             ds_levels=ds_levels)
+        else:
+            out = precision.solve_refined_ts(p6.hierarchy, cfg, p6.rhs(),
+                                             num_cycles=2, tol=None,
+                                             ds_levels=ds_levels)
+        assert out[-2] == 2
+        want = dict.fromkeys(calls, 0)
+        if cfg.use_kernels and driver == "ds":
+            want["ds_residual3"] = 2 * (ds_levels + 1)
+        elif cfg.use_kernels:
+            want.update(ds_residual3=2 * ds_levels, ts_residual3=2)
+        assert calls == want
 
 
 # ---------------------------------------------------------------------------

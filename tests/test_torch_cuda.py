@@ -1422,3 +1422,98 @@ def test_zmarch_k1v3_ext_at_four_origins(gen, nplanes, smoother, omega,
         ku, krc = VT3.var_smooth_restrict_ext3(*args)
         pu, prc = VT3.var_smooth_restrict_ext3_plain(*args)
         assert torch.equal(ku, pu) and torch.equal(krc, prc), origin
+
+
+# ---------------------------------------------------------------------------
+# The 3D compensated residuals: ds_residual3 and ts_residual3 (the z march)
+# ---------------------------------------------------------------------------
+
+# (shape, n): levels 5, 7 and 9 as the 3D front door pads them, and a ragged
+# grid whose sides are no multiple of the 8 x 4 x 64 block.
+COMPRES3 = [((48, 48, 128), 32), ((144, 144, 256), 128),
+            ((528, 528, 640), 512), ((70, 54, 130), 50)]
+
+
+@pytest.mark.parametrize("shape,n", COMPRES3)
+def test_comp_residuals3_match_plain_bitwise(gen, shape, n):
+    """u_hi O(1), u_mid ~1e-8, u_lo ~1e-16, b ~h^2; the ragged grid holds
+    noise outside the interior too (only masked nodes may see it)."""
+    if n == 50:
+        def comp(scale):
+            return scale * torch.randn(shape, generator=gen, device="cuda")
+    else:
+        def comp(scale):
+            return _interior3(shape, n, gen, scale)
+    b, uh, um, ul = comp(1.0 / n ** 2), comp(1.0), comp(1e-8), comp(1e-16)
+    assert torch.equal(compres.ds_residual3(b, uh, um, n),
+                       precision.ds_residual(b, uh, um, n))
+    assert torch.equal(compres.ts_residual3(b, uh, um, ul, n),
+                       precision.ts_residual(b, uh, um, ul, n))
+
+
+def test_comp_residuals3_launches_and_bad_inputs(gen):
+    shape, n = COMPRES3[0]
+    u = _interior3(shape, n, gen)
+    kernels.reset_launch_counts()
+    compres.ds_residual3(u, u, u, n)
+    compres.ts_residual3(u, u, u, u, n)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "ds_residual3": 1, "ts_residual3": 1}
+    d = u.double()
+    with pytest.raises(NotImplementedError):
+        compres.ds_residual3(d, d, d, n)
+    with pytest.raises(ValueError):     # shapes differ
+        compres.ds_residual3(u, u, u[:, :, :64].contiguous(), n)
+    with pytest.raises(ValueError):     # not contiguous
+        compres.ts_residual3(u, u, u.transpose(0, 1), u, n)
+    with pytest.raises(ValueError):     # a batch of grids
+        v = torch.zeros((2, 48, 48, 128), device="cuda")
+        compres.ds_residual3(v, v, v, n)
+    with pytest.raises(ValueError):     # a 2D grid
+        w = torch.zeros((256, 256), device="cuda")
+        compres.ds_residual3(w, w, w, 64)
+    with pytest.raises(ValueError):     # n past the grid
+        compres.ts_residual3(u, u, u, u, 48)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "ds_residual3": 1, "ts_residual3": 1}
+
+
+@pytest.mark.parametrize("driver,ds_levels", [("ds", 0), ("ds", 2),
+                                              ("ts", 2)])
+def test_refined3d_residual_kernel_keeps_the_iterates(gen, monkeypatch,
+                                                      driver, ds_levels):
+    """A level-7 refined solve to 1e-10 with the 3D residual on the kernel
+    and forced onto the plain version: the same iterations and the same
+    bits; one ds residual per ds level and iteration plus the outer one."""
+    cfg = tmg.MultigridConfig(finest_level=7, smoother="chebyshev", nu1=3,
+                              nu2=2, use_kernels=True)
+    prob = tmg.Poisson3DProblem(cfg, align=16, min_pad_level=0,
+                                lane_align=128, device="cuda")
+    b = prob.rhs()
+
+    def solve():
+        if driver == "ds":
+            return precision.solve_refined_ds(prob.hierarchy, cfg, b,
+                                              tol=1e-10, max_iters=30,
+                                              ds_levels=ds_levels)
+        return precision.solve_refined_ts(prob.hierarchy, cfg, b, tol=1e-10,
+                                          max_iters=30, ds_levels=ds_levels)
+    kernels.reset_launch_counts()
+    ko = solve()
+    counts = kernels.launch_counts()
+    monkeypatch.setattr(compres, "supported3", lambda shape, dtype: False)
+    po = solve()
+    assert kernels.launch_counts()["ds_residual3"] == counts["ds_residual3"]
+    it = ko[-2]
+    assert ko[-1] and po[-2] == it
+    for k, p in zip(ko[:-3], po[:-3]):
+        assert torch.equal(k, p)
+    torch.testing.assert_close(ko[-3], po[-3], rtol=0, atol=0,
+                               equal_nan=True)
+    if driver == "ds":
+        assert counts["ds_residual3"] == (ds_levels + 1) * it
+        assert counts["ts_residual3"] == 0
+    else:
+        assert counts["ds_residual3"] == ds_levels * it
+        assert counts["ts_residual3"] == it
+    assert counts["ds_residual"] == counts["ts_residual"] == 0

@@ -171,6 +171,18 @@ def test_compres_gate_matches_jax(S):
     assert TC.supported(S, torch.float64) == JC.supported(S, jnp.float64)
 
 
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((48, 48, 128), torch.float32, True),
+    ((528, 528, 640), torch.float32, True),
+    ((70, 54, 130), torch.float32, True),
+    ((48, 48, 128), torch.float64, False),
+    ((48, 48, 128), torch.bfloat16, False),
+    ((256, 256), torch.float32, False),        # 2D: the other kernel's
+    ((2, 48, 48, 128), torch.float32, False)])
+def test_compres3_gate(shape, dtype, want):
+    assert TC.supported3(shape, dtype) is want
+
+
 @pytest.mark.parametrize("option", ["smooth_dtype", "stencil", "float64"])
 def test_unported_kernel_options_raise(option):
     u, b, e = map(torch.tensor, _grids(256, 128, 256))

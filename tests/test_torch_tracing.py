@@ -128,8 +128,9 @@ def test_a_driver_records_one_root_and_its_spans(problems, name):
             assert spans[s.parent].name in ("solve", "cycle")
     kinds = {s.attrs.get("kind") for s in spans if s.name == "accumulate"}
     assert kinds <= ({"ds", "ts"} if name == "ts" else {"ds"})
+    # Both grids qualify for a compensated-residual kernel.
     paths = {s.attrs["path"] for s in spans if s.name == "residual"}
-    assert paths <= ({"plain"} if ndim == 3 else {"kernel"})
+    assert paths <= {"kernel"}
 
 
 @pytest.mark.parametrize("name", list(DRIVERS))

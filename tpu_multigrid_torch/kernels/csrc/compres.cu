@@ -25,6 +25,32 @@
 // contracts into an FMA nor reassociates, in the order of
 // tpu_multigrid_torch/precision.py::_ds_cascade / _ts_cascade (compsum.cuh):
 // r agrees with the plain torch version bitwise.
+//
+// The 3D entries (ds_residual3, ts_residual3): the same residuals of the
+// 7-point operator on an (Sz, Sy, Sx) grid, masked to 1..n-1 on every axis.
+// They replace no TPU kernel: the JAX package evaluates its 3D compensated
+// residual in jnp.  They were added because the plain torch version (six
+// rolls a neighbour sum, a dozen full-size TwoSum temporaries) took 79 ms a
+// call at (528, 528, 640) on an H100, two thirds of a refined 513^3 solve.
+//
+// What bounds them: device-memory traffic.  b and the 2 or 3 components read
+// and r written: 4 or 5 passes of Sz*Sy*Sx*4 bytes (0.85 / 1.07 ms at
+// (528, 528, 640) on 3.35 TB/s; 0.69 / 0.85 ms counting only the cells the
+// interior reads, 0..n on every axis), against 97 / 180 flops per node.
+//
+// What the design does about it (a column march): a block of 64 x 4 threads
+// covers a 4 x 64 (y, x) tile of 8 planes, each thread one (y, x) column of
+// them.  The thread keeps its column's values at z - 1, z and z + 1 in
+// registers, so each centre it reads serves three planes; the x and y
+// neighbours come through L1 from the block's own rows, and the blocks run
+// z-major, so the rows of the tiles beside them and the planes above and
+// below meet in L2.  So every input cell is read from device memory about
+// once, and r is written once, coalesced, with the zeros of the masked nodes
+// and the padding in the same pass.  Cells outside 0..n on some axis are
+// never read.  A z march through shared planes filled by cp.async, 16 x 64
+// tiles of 64 planes, ran 1.27 / 1.84 ms at (528, 528, 640) against this
+// design's 0.87 / 1.34: its 80-100 registers a thread left one block of 16
+// warps per SM (PERF.md §6, row 33).
 
 #include <cuda_runtime.h>
 
@@ -87,6 +113,94 @@ dim3 grid_for(int S) {
   return dim3((S + kThreadsX - 1) / kThreadsX, (S + kThreadsY - 1) / kThreadsY);
 }
 
+// ---- 3D: the column march ----
+
+constexpr int kCX = 64;  // block extent along x (two warps a row)
+constexpr int kCY = 4;   // block extent along y
+constexpr int kCZ = 8;   // planes a thread marches
+
+// r = b - A(sum of the NC components) on the grid, masked to 1..n-1: NC = 2
+// is the ds residual (u_hi, u_lo), NC = 3 the ts residual (u_hi, u_mid,
+// u_lo).  Thread (x, y) of block bz owns the planes kCZ bz .. kCZ bz + kCZ-1.
+template <int NC>
+__global__ void __launch_bounds__(kCX * kCY)
+    comp_residual3_kernel(const float* __restrict__ b,
+                          const float* __restrict__ u0,
+                          const float* __restrict__ u1,
+                          const float* __restrict__ u2,
+                          float* __restrict__ r, int Sz, int Sy, int Sx,
+                          int n) {
+  const int x = blockIdx.x * kCX + threadIdx.x;
+  const int y = blockIdx.y * kCY + threadIdx.y;
+  const int z0 = blockIdx.z * kCZ;
+  if (x >= Sx || y >= Sy) return;
+  const size_t plane = (size_t)Sy * Sx;
+  const size_t k0 = ((size_t)z0 * Sy + y) * Sx + x;
+  if (!(y >= 1 && y <= n - 1 && x >= 1 && x <= n - 1)) {
+#pragma unroll
+    for (int k = 0; k < kCZ; ++k)
+      if (z0 + k < Sz) r[k0 + k * plane] = 0.0f;
+    return;
+  }
+  const float* const comp[3] = {u0, u1, u2};
+  // The column at z - 1 and z; cells past n read as zero (only masked
+  // nodes could see them).
+  float zm[NC], zc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    zm[c] = z0 >= 1 && z0 - 1 <= n ? __ldg(comp[c] + k0 - plane) : 0.0f;
+    zc[c] = z0 <= n ? __ldg(comp[c] + k0) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kCZ; ++k) {
+    const int z = z0 + k;
+    if (z >= Sz) break;
+    const size_t o = k0 + k * plane;
+    float zp[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      zp[c] = z + 1 <= n ? __ldg(comp[c] + o + plane) : 0.0f;
+    float out = 0.0f;
+    if (z >= 1 && z <= n - 1) {
+      float nb[NC][6];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        nb[c][0] = zm[c];
+        nb[c][1] = zp[c];
+        nb[c][2] = __ldg(comp[c] + o - Sx);
+        nb[c][3] = __ldg(comp[c] + o + Sx);
+        nb[c][4] = __ldg(comp[c] + o - 1);
+        nb[c][5] = __ldg(comp[c] + o + 1);
+      }
+      const float bv = __ldg(b + o);
+      if constexpr (NC == 2)
+        out = ds_resid3(bv, zc[0], nb[0], zc[1], nb[1]);
+      else
+        out = ts_resid3(bv, zc[0], nb[0], zc[1], nb[1], zc[2], nb[2]);
+    }
+    r[o] = out;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      zm[c] = zc[c];
+      zc[c] = zp[c];
+    }
+  }
+}
+
+template <int NC>
+int launch_comp_residual3(const void* b, const void* u0, const void* u1,
+                          const void* u2, void* r, int Sz, int Sy, int Sx,
+                          int n, void* stream) {
+  const dim3 grid((Sx + kCX - 1) / kCX, (Sy + kCY - 1) / kCY,
+                  (Sz + kCZ - 1) / kCZ);
+  comp_residual3_kernel<NC><<<grid, dim3(kCX, kCY), 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<const float*>(u0),
+      static_cast<const float*>(u1), static_cast<const float*>(u2),
+      static_cast<float*>(r), Sz, Sy, Sx, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -108,6 +222,19 @@ int tmt_ts_residual(const void* b, const void* uh, const void* um,
       static_cast<const float*>(um), static_cast<const float*>(ul),
       static_cast<float*>(r), S, n);
   return cudaGetLastError();
+}
+
+// The 3D entries: contiguous (Sz, Sy, Sx) float32 arrays, 1 <= n <=
+// min(Sz, Sy, Sx) - 1 (the wrapper checks both).
+int tmt_ds_residual3(const void* b, const void* uh, const void* ul, void* r,
+                     int Sz, int Sy, int Sx, int n, void* stream) {
+  return launch_comp_residual3<2>(b, uh, ul, ul, r, Sz, Sy, Sx, n, stream);
+}
+
+int tmt_ts_residual3(const void* b, const void* uh, const void* um,
+                     const void* ul, void* r, int Sz, int Sy, int Sx, int n,
+                     void* stream) {
+  return launch_comp_residual3<3>(b, uh, um, ul, r, Sz, Sy, Sx, n, stream);
 }
 
 }  // extern "C"

@@ -9,17 +9,18 @@ deeper residuals out of f32 storage:
   arrays, an unevaluated sum);
 * the residual r = b - A(u_hi + u_lo) is evaluated with error-free
   transformations (TwoSum/Neumaier compensation; 4*u_hi is exact),
-  accurate to ~eps^2 — one launch of the ``kernels.compres`` kernel on the
-  card;
+  accurate to ~eps^2 — one launch of a ``kernels.compres`` kernel on the
+  card, 2D or 3D;
 * the outer loop is iterative refinement with one multigrid cycle as the
   inner solver: e = MG(r); u += e (compensated accumulation).
 
 For the deepest tolerances at 16385^2 the iterate is a triple-single
 u_hi + u_mid + u_lo (:func:`solve_refined_ts`), and the inner cycle keeps
 its corrections double-single on the finest levels (:func:`cycle_ds`).
-Ported here: the 2D and 3D branches of all of it (3D evaluates its
-compensated residuals and transfers in plain torch, as the JAX package
-does).  ``inner_dtype`` (a narrow inner cycle) is not ported yet.
+Ported here: the 2D and 3D branches of all of it (3D keeps its compensated
+transfers in plain torch, as the JAX package does; its compensated residual
+has a kernel of its own, which the JAX package does not have).
+``inner_dtype`` (a narrow inner cycle) is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,12 +155,16 @@ def ts_residual(b, u_hi, u_mid, u_lo, n: int):
 
 
 def _ds_residual_d(b, u_hi, u_lo, n, use_kernels):
-    """ds_residual, through the kernel when the grid is 2D and qualifies
-    (the kernel is 2D only: a 3D grid's last side must not reach it)."""
+    """ds_residual, through the 2D kernel when the grid is 2D and qualifies,
+    through the 3D kernel when it is 3D and qualifies (a 3D grid's last side
+    never reaches the 2D kernel)."""
     if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
                                                          b.dtype):
         with tracing.span("residual", b, path="kernel"):
             return compres.ds_residual(b, u_hi, u_lo, n)
+    if use_kernels and b.ndim == 3 and compres.supported3(b.shape, b.dtype):
+        with tracing.span("residual", b, path="kernel"):
+            return compres.ds_residual3(b, u_hi, u_lo, n)
     with tracing.span("residual", b, path="plain"):
         return ds_residual(b, u_hi, u_lo, n)
 
@@ -169,6 +174,9 @@ def _ts_residual_d(b, u_hi, u_mid, u_lo, n, use_kernels):
                                                          b.dtype):
         with tracing.span("residual", b, path="kernel"):
             return compres.ts_residual(b, u_hi, u_mid, u_lo, n)
+    if use_kernels and b.ndim == 3 and compres.supported3(b.shape, b.dtype):
+        with tracing.span("residual", b, path="kernel"):
+            return compres.ts_residual3(b, u_hi, u_mid, u_lo, n)
     with tracing.span("residual", b, path="plain"):
         return ts_residual(b, u_hi, u_mid, u_lo, n)
 
