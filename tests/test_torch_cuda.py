@@ -1517,3 +1517,40 @@ def test_refined3d_residual_kernel_keeps_the_iterates(gen, monkeypatch,
         assert counts["ds_residual3"] == ds_levels * it
         assert counts["ts_residual3"] == it
     assert counts["ds_residual"] == counts["ts_residual"] == 0
+
+
+def _hpgmg_beta(x, y, z):
+    """HPGMG-FV's evaluateBeta: 1 inside a ball of radius 0.25, 10 out."""
+    r = torch.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+    return 5.5 + 4.5 * torch.tanh(10.0 * (r - 0.25))
+
+
+def test_refined_var3d_matches_the_cpu(gen):
+    """A level-7 refined solve of HPGMG-FV's variable-beta problem to 1e-8:
+    on the card (K1v_3 / K2v_3 and the float64 flux-form residual) in the
+    iterations of the CPU's solve (the kernels' plain versions), each
+    answer within 1e-8 of ||b|| by the float64 residual (the iterates
+    themselves differ in their last bits: the coarse levels' plain ops and
+    the dense coarse solve round differently on the two devices)."""
+    cfg = tmg.MultigridConfig(finest_level=7, smoother="chebyshev", nu1=3,
+                              nu2=2, use_kernels=True)
+    got = {}
+    for device in ("cuda", "cpu"):
+        prob = tmg.Diffusion3DProblem(cfg, coefficient=_hpgmg_beta,
+                                      device=device)
+        b = prob.rhs()
+        kernels.reset_launch_counts()
+        u_hi, u_lo, _, it, ok = precision.solve_refined_ds(
+            prob.hierarchy, cfg, b, tol=1e-8)
+        counts = kernels.launch_counts()
+        op = prob.hierarchy.levels[0].to("cpu")
+        r = precision.ds_residual_var3(op, b.cpu(), u_hi.cpu(), u_lo.cpu())
+        rel = float(torch.linalg.vector_norm(r.double())
+                    / torch.linalg.vector_norm(b.cpu().double()))
+        got[device] = (it, ok, rel, counts)
+    (it, ok, rel, counts), (cit, cok, crel, _) = got["cuda"], got["cpu"]
+    assert ok and cok and it == cit
+    assert rel <= 1e-8 and crel <= 1e-8
+    # One fused pair at level 7: (144, 144, 256) -> (80, 80, 128).
+    assert counts["var_smooth_restrict3"] == it
+    assert counts["var_prolong_smooth3"] == it

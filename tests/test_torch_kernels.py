@@ -24,6 +24,7 @@ from tpu_multigrid.kernels import transfer as JT
 
 from tpu_multigrid_torch import kernels, precision
 from tpu_multigrid_torch.core import ops
+from tpu_multigrid_torch.core.operators import ConstStencilOp
 from tpu_multigrid_torch.kernels import _build
 from tpu_multigrid_torch.kernels import compres as TC
 from tpu_multigrid_torch.kernels import stencil as TS
@@ -148,7 +149,8 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     assert torch.equal(TC.ds_residual(*map(torch.tensor, ds), n),
                        precision.ds_residual(*map(torch.tensor, ds), n))
     ts = [torch.tensor(a) for a in _components(S, n, 3, seed=6)]
-    assert torch.equal(precision._ts_residual_d(*ts, n, True),
+    assert torch.equal(precision._ts_residual_d(*ts, ConstStencilOp(n, S),
+                                                True),
                        precision.ts_residual(*ts, n))
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -431,6 +431,7 @@ def solve_diffusion3d(
     max_cycles: int = 100,
     num_cycles: Optional[int] = None,
     use_fmg: bool = False,
+    refined: bool = False,
     mesh=None,
     boundary: Optional[Union[float, Callable]] = None,
     device: Union[str, torch.device, None] = None,
@@ -443,9 +444,13 @@ def solve_diffusion3d(
     torch tensors.  ``boundary`` lifts inhomogeneous face values.  Levels
     are padded to S = round_up(n+1, 16), Sx = round_up(n+1, 128); wide
     level pairs run K1v_3 / K2v_3 (3 coefficient planes, 4 with ``shift``).
-    The default config is Chebyshev (3, 2), with the kernels on when the
-    solve runs on the card.  ``mesh`` raises ``NotImplementedError`` (not
-    ported yet).
+    ``refined=True`` runs compensated double-single refinement
+    (``precision.solve_refined``), its residual evaluated in float64 on the
+    operator's float32 transmissibilities: the f32 residual floor stalls
+    the plain iterate near 3e-3 of ||b|| at 513^3; ``result.u`` is the
+    high part of the pair.  The default config is Chebyshev (3, 2), with
+    the kernels on when the solve runs on the card.  ``mesh`` raises
+    ``NotImplementedError`` (not ported yet).
     """
     device = default_device(device)
     config = _config3(config, finest_level, "chebyshev", device, nu1=3,
@@ -454,7 +459,7 @@ def solve_diffusion3d(
     problem = Diffusion3DProblem(config, coefficient=coefficient, shift=shift,
                                  forcing=forcing, device=device)
     return _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
-                boundary=boundary)
+                refined=refined, boundary=boundary)
 
 
 def solve_convection_diffusion3d(

@@ -23,9 +23,18 @@ slices.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from .ops import _axis_interior
+
+# Interior masks of up to this many nodes (4 MiB of bool) are made once and
+# shared: a plain 3D cycle asks for the same few masks on its coarse levels
+# at every visit, and making one takes about twenty small ops, which the
+# host issues one by one while the card waits.
+MASK_CACHE_NODES = 1 << 22
 
 
 def _shape3(S) -> tuple:
@@ -34,8 +43,22 @@ def _shape3(S) -> tuple:
 
 
 def interior_mask3(S, n: int, device=None) -> torch.Tensor:
-    """Boolean (Sz, Sy, Sx) mask of the unknowns: 1 <= i, j, k <= n-1."""
-    sz, sy, sx = _shape3(S)
+    """Boolean (Sz, Sy, Sx) mask of the unknowns: 1 <= i, j, k <= n-1.
+    Up to ``MASK_CACHE_NODES`` nodes the mask is shared: read it only."""
+    shape = _shape3(S)
+    if math.prod(shape) <= MASK_CACHE_NODES:
+        return _shared_mask3(shape, int(n), None if device is None
+                             else torch.device(device))
+    return _make_mask3(shape, n, device)
+
+
+@functools.lru_cache(maxsize=256)
+def _shared_mask3(shape, n: int, device) -> torch.Tensor:
+    return _make_mask3(shape, n, device)
+
+
+def _make_mask3(shape, n: int, device) -> torch.Tensor:
+    sz, sy, sx = shape
     mz = _axis_interior(sz, n, device)
     my = _axis_interior(sy, n, device)
     mx = _axis_interior(sx, n, device)

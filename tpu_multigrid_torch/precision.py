@@ -10,7 +10,8 @@ deeper residuals out of f32 storage:
 * the residual r = b - A(u_hi + u_lo) is evaluated with error-free
   transformations (TwoSum/Neumaier compensation; 4*u_hi is exact),
   accurate to ~eps^2 — one launch of a ``kernels.compres`` kernel on the
-  card, 2D or 3D;
+  card, 2D or 3D; for the 3D flux stencil (``VarStencilOp3D``) in float64
+  (:func:`ds_residual_var3`);
 * the outer loop is iterative refinement with one multigrid cycle as the
   inner solver: e = MG(r); u += e (compensated accumulation).
 
@@ -34,6 +35,7 @@ from . import tracing
 from .config import MultigridConfig
 from .core import ops, ops3d
 from .core.grids import Hierarchy
+from .core.operators import ConstStencilOp, ConstStencilOp3D, VarStencilOp3D
 from .cycles import (SolveResult, _coarsest_solve, _ndim, _restrict, _smooth,
                      _smooth_residual, _tshape, _zeros, cycle)
 from .kernels import compres
@@ -154,10 +156,93 @@ def ts_residual(b, u_hi, u_mid, u_lo, n: int):
     return _mask_nd(r, n)
 
 
-def _ds_residual_d(b, u_hi, u_lo, n, use_kernels):
-    """ds_residual, through the 2D kernel when the grid is 2D and qualifies,
-    through the 3D kernel when it is 3D and qualifies (a 3D grid's last side
-    never reaches the 2D kernel)."""
+# Nodes of one float64 temporary of :func:`ds_residual_var3` (128 MiB): it
+# works in z-slabs of about this many nodes.
+VAR3_SLAB_NODES = 1 << 24
+
+
+def ds_residual_var3(op, b, u_hi, u_lo):
+    """r = b - A(u_hi + u_lo) for a 3D flux stencil ``op``
+    (``VarStencilOp3D``), evaluated in float64 from the float32 inputs and
+    rounded once to float32, masked to the interior.
+
+    A is the flux form of the operator's float32 transmissibilities,
+    ``(A u)_i = sum_f t_f (u_i - u_f)`` over the six faces (x+, x-, y+, y-,
+    z+, z-, summed in that order; the minus-face planes are the stored
+    planes one node back), plus ``c2_i u_i`` where the operator has a
+    reaction plane.  ``inv_diag``, rounded to float32, takes no part.
+
+    Accuracy: u_lo lies within half an ulp of u_hi, so u_hi + u_lo spans
+    at most 49 bits and is exact in float64 (a u_lo far below that rounds
+    at 2^-53 |u|, under the pair's own representation error).  Each t_f is
+    widened exactly; each flux and the sum of the six with b round at
+    2^-53 of their size, some 2^-50 of sum_f t_f |u_i - u_f| in all.  A
+    float32 evaluation errs by some 2^-21 of that sum, which is the floor
+    (3e-3 of ||b|| at 513^3) that refinement gets under: float64 puts it
+    29 bits lower, far under the 1e-8 asked of it.  The card has float64
+    units, so the error-free transforms of the constant path (which the
+    TPU, without float64, needs) are not needed here.
+
+    Plain torch ops, the same on the card and on the CPU, over z-slabs of
+    about ``VAR3_SLAB_NODES`` nodes, so that the float64 temporaries stay
+    a few slabs in size."""
+    n = op.n
+    tz, ty, tx, c2 = op.tz, op.ty, op.tx, op.c2
+    r = torch.zeros_like(b)
+    slab = max(1, VAR3_SLAB_NODES // (n + 1) ** 2)
+    ins = slice(1, n)
+    for z0 in range(1, n, slab):
+        z1 = min(z0 + slab, n)
+        zs = slice(z0, z1)
+        # u over the slab and one node around it, in float64 (exact).
+        u = (u_hi[z0 - 1:z1 + 1, :n + 1, :n + 1].double()
+             + u_lo[z0 - 1:z1 + 1, :n + 1, :n + 1])
+        c = u[1:-1, 1:-1, 1:-1]
+        acc = tx[zs, ins, ins] * (c - u[1:-1, 1:-1, 2:])
+        acc += tx[zs, ins, 0:n - 1] * (c - u[1:-1, 1:-1, :-2])
+        acc += ty[zs, ins, ins] * (c - u[1:-1, 2:, 1:-1])
+        acc += ty[zs, 0:n - 1, ins] * (c - u[1:-1, :-2, 1:-1])
+        acc += tz[zs, ins, ins] * (c - u[2:, 1:-1, 1:-1])
+        acc += tz[z0 - 1:z1 - 1, ins, ins] * (c - u[:-2, 1:-1, 1:-1])
+        if c2 is not None:
+            acc += c2[zs, ins, ins] * c
+        r[zs, ins, ins] = b[zs, ins, ins] - acc
+    return r
+
+
+# The level operators each compensated residual takes: ds for the constant
+# 5- and 7-point Laplacians and the 3D flux stencil, ts for the constant
+# ones only.
+_DS_OPS = (ConstStencilOp, ConstStencilOp3D, VarStencilOp3D)
+_TS_OPS = (ConstStencilOp, ConstStencilOp3D)
+
+
+def compensable(op, kind: str = "ds") -> bool:
+    """Whether the refinement drivers hold a compensated ``kind`` ("ds" or
+    "ts") residual for the level operator ``op``."""
+    return isinstance(op, _DS_OPS if kind == "ds" else _TS_OPS)
+
+
+def _require_compensable(op, kind: str = "ds") -> None:
+    """Refuse an operator with no compensated residual: refinement would
+    correct toward another operator's solution."""
+    if not compensable(op, kind):
+        raise NotImplementedError(
+            f"no compensated {kind} residual for {type(op).__name__}: "
+            f"refinement would correct toward another operator's solution")
+
+
+def _ds_residual_d(b, u_hi, u_lo, op, use_kernels):
+    """The compensated ds residual of the level operator ``op``: the 3D
+    flux stencil's in float64; the constant Laplacian's through the 2D
+    kernel when the grid is 2D and qualifies, through the 3D kernel when it
+    is 3D and qualifies (a 3D grid's last side never reaches the 2D
+    kernel), else in plain torch.  Any other operator raises."""
+    if isinstance(op, VarStencilOp3D):
+        with tracing.span("residual", b, path="var3"):
+            return ds_residual_var3(op, b, u_hi, u_lo)
+    _require_compensable(op)
+    n = op.n
     if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
                                                          b.dtype):
         with tracing.span("residual", b, path="kernel"):
@@ -169,7 +254,9 @@ def _ds_residual_d(b, u_hi, u_lo, n, use_kernels):
         return ds_residual(b, u_hi, u_lo, n)
 
 
-def _ts_residual_d(b, u_hi, u_mid, u_lo, n, use_kernels):
+def _ts_residual_d(b, u_hi, u_mid, u_lo, op, use_kernels):
+    _require_compensable(op, "ts")
+    n = op.n
     if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
                                                          b.dtype):
         with tracing.span("residual", b, path="kernel"):
@@ -273,6 +360,7 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
             e = cycle(hier, cfg, torch.zeros_like(r), r, k=k)
         return e, torch.zeros_like(e)
 
+    _require_compensable(op)
     opc = hier.levels[k + 1]
     ndim = _ndim(op)
     e0, r1 = _smooth_residual(op, torch.zeros_like(r), r, cfg, cfg.nu1)
@@ -290,7 +378,7 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
         p_lo = ops.prolong(ec_lo, opc.n, op.S) + p_err
     # accumulate (p_hi, p_lo) + e0 exactly, then post-smooth in delta form
     e_hi, e_lo = ds_add(p_hi, p_lo, e0)
-    d0 = _ds_residual_d(r, e_hi, e_lo, op.n, cfg.use_kernels)
+    d0 = _ds_residual_d(r, e_hi, e_lo, op, cfg.use_kernels)
     delta = _smooth(op, torch.zeros_like(d0), d0, cfg, cfg.nu2)
     return ds_add(e_hi, e_lo, delta)
 
@@ -366,9 +454,12 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
     inner correction cycle runs with double-single corrections on the
     finest ``ds_levels`` levels (:func:`cycle_ds`), or is the plain cycle
     with ``ds_levels=0``.  ``hist`` is a float32 CPU tensor of residual
-    norms, NaN-padded; stop rules as :func:`solve_refined_ds`.
+    norms, NaN-padded; stop rules as :func:`solve_refined_ds`.  The
+    finest operator is a constant 5- or 7-point Laplacian; any other
+    raises ``NotImplementedError``.
     """
     _check_modes(tol, num_cycles)
+    _require_compensable(hier.levels[0], "ts")
     with tracing.solve() as root:
         op = hier.levels[0]
         u_hi = _zeros(op, b)
@@ -387,7 +478,7 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
                 with tracing.span("cycle", r):
                     e = cycle(hier, cfg, torch.zeros_like(r), r)
                 u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e)
-            r = _ts_residual_d(b, u_hi, u_mid, u_lo, op.n, cfg.use_kernels)
+            r = _ts_residual_d(b, u_hi, u_mid, u_lo, op, cfg.use_kernels)
             loop.record(tracing.sync(ops.norm2(r), "norm"))
         root.set(iterations=loop.i)
         return (u_hi, u_mid, u_lo) + loop.outcome()
@@ -424,7 +515,9 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
     does not reduce the residual by ``stall_factor``.  ``hist`` is a
     float32 CPU tensor of residual norms, NaN-padded.  ``ds_levels > 0``
     runs the inner cycle with double-single corrections on that many
-    finest levels (:func:`cycle_ds`).
+    finest levels (:func:`cycle_ds`).  The finest operator is a constant
+    5- or 7-point Laplacian or a ``VarStencilOp3D`` (:func:`compensable`);
+    any other raises ``NotImplementedError``.
     """
     if inner_dtype is not None and ds_levels > 0:
         raise ValueError("inner_dtype and ds_levels are mutually exclusive")
@@ -432,13 +525,14 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
         raise NotImplementedError("inner_dtype (a narrow inner cycle) is not "
                                   "ported yet")
     _check_modes(tol, num_cycles)
+    _require_compensable(hier.levels[0])
     with tracing.solve() as root:
         op = hier.levels[0]
         if u0 is not None:
             u_hi = u0.to(b.dtype)
             u_lo = (u0_lo.to(b.dtype) if u0_lo is not None
                     else torch.zeros_like(u_hi))
-            r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
+            r = _ds_residual_d(b, u_hi, u_lo, op, cfg.use_kernels)
         else:
             u_hi = _zeros(op, b)
             u_lo = torch.zeros_like(u_hi)
@@ -455,7 +549,7 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
                 with tracing.span("cycle", r):
                     e = cycle(hier, cfg, torch.zeros_like(r), r)
                 u_hi, u_lo = ds_add(u_hi, u_lo, e)
-            r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_kernels)
+            r = _ds_residual_d(b, u_hi, u_lo, op, cfg.use_kernels)
             loop.record(tracing.sync(ops.norm2(r), "norm"))
         root.set(iterations=loop.i)
         return (u_hi, u_lo) + loop.outcome()

@@ -26,7 +26,7 @@ The span sites:
 * ``accumulate``: each compensated add, ``precision.ds_add`` / ``ts_add``
   (attribute ``kind``);
 * ``residual``: each compensated residual (attribute ``path``: ``kernel``
-  or ``plain``);
+  or ``plain``; ``var3`` for the 3D flux stencil's float64 one);
 * ``sync``: each blocking read, through :func:`sync` (attribute ``what``).
 
 ``cycle``, ``accumulate`` and ``residual`` on CUDA tensors also record a
