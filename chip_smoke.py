@@ -61,8 +61,10 @@ Phases, each printing its own lines:
    scipy sparse float64 direct solve.
 4g. The 3D variable-coefficient slice at 513^3 (solve_diffusion3d, with and
    without a reaction term, and solve_convection_diffusion3d at 257^3):
-   K1v_3 / K2v_3 bitwise at the fused pairs, each path on both routes with
-   exact launch counts, level 5 in float64 against scipy.
+   K1v_3 / K2v_3 bitwise at the fused pairs, the flux stencil's float64
+   residual (ds_residual_var3) bitwise at (528, 528, 640) with and without
+   a reaction plane, each path on both routes with exact launch counts,
+   level 5 in float64 against scipy.
 4h. The 2D anisotropic slice at 4097^2 (benchmarks/bench_families.py's
    rotated anisotropy: 45 degrees, eps_x = 1, eps_y = 0.05, zebra_x (1, 1),
    coarsest level 3, levels padded to 256): the zebra smoother, K1z, K2z
@@ -177,6 +179,7 @@ it also exits non-zero when no CUDA device is present.
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1571,6 +1574,46 @@ def phase_var_kernels3d(errs, prob):
         del u, b, ec
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
+
+
+def var_residual3_inputs(prob, gen, c2):
+    """The float64 var residual's inputs at the finest level of ``prob``:
+    its operator (with a seeded reaction plane when ``c2``), b ~h^2,
+    u_hi ~1 and u_lo within half an ulp of it on the interior."""
+    from tpu_multigrid_torch.core.operators import VarStencilOp3D
+    op = prob.hierarchy.levels[0]
+    shape, n = op.grid_shape, op.n
+    if c2:
+        op = VarStencilOp3D(op.tz, op.ty, op.tx, op.inv_diag, n, op.S,
+                            op.Sx, c2=seeded_planes3(1, shape, gen)[0])
+    u_hi = interior_randn3(shape, n, gen)
+    ulp = torch.nextafter(u_hi.abs(), torch.full_like(u_hi, np.inf)) \
+        - u_hi.abs()
+    u_lo = (torch.rand(shape, generator=gen, device=DEVICE) - 0.5) * ulp
+    return op, interior_randn3(shape, n, gen, 1.0 / n ** 2), u_hi, u_lo
+
+
+def phase_var_residual3(prob):
+    """The flux stencil's float64 residual (ds_residual_var3, a kernel that
+    replaces no TPU kernel: the JAX package evaluates it in jnp) against
+    its plain z-slab body at the finest level, bitwise, with and without a
+    reaction plane."""
+    from tpu_multigrid_torch import precision
+    from tpu_multigrid_torch.kernels import compres
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(10)
+    for c2 in (False, True):
+        op, b, u_hi, u_lo = var_residual3_inputs(prob, gen, c2)
+        got = compres.ds_residual_var3(op, b, u_hi, u_lo)
+        want = precision.ds_residual_var3_plain(op, b, u_hi, u_lo)
+        err = float((got.double() - want.double()).abs().max())
+        check(torch.equal(got, want), f"ds_residual_var3 differs from its "
+              f"plain version: max err {err}")
+        print(f"[var-kernels3d] {op.grid_shape} n={op.n}: ds_residual_var3 "
+              f"{'with' if c2 else 'without'} a reaction plane bitwise "
+              f"equal")
+        del op, b, u_hi, u_lo, got, want
+    torch.cuda.empty_cache()
 
 
 def var3_counts(cycles, level=None):
@@ -4284,6 +4327,30 @@ def var3_times(card, prob, times, work):
                   f"ms, bound {bms:.3f} ms ({by})  ({card})")
         del u, b, ec, coef, fns, k2
         torch.cuda.empty_cache()
+    var_residual3_times(card, prob, times, gen)
+
+
+def var_residual3_times(card, prob, times, gen):
+    """The refinement loop's float64 residual beside its plain body, on the
+    hierarchy's planes, with its bound: b, u_hi, u_lo, tz, ty, tx read and
+    r written, 7 passes of the padded array, or 6 over the (n+1)^3 cells
+    the interior reads and r in full."""
+    from tpu_multigrid_torch import precision
+    from tpu_multigrid_torch.kernels import compres
+    op, b, u_hi, u_lo = var_residual3_inputs(prob, gen, False)
+    cells, reach = math.prod(op.grid_shape), (op.n + 1) ** 3
+    kp = (cuda_ms(lambda: compres.ds_residual_var3(op, b, u_hi, u_lo)),
+          cuda_ms(lambda: precision.ds_residual_var3_plain(op, b, u_hi,
+                                                           u_lo)))
+    times["ds_residual_var3"] = kp
+    full, _ = bound(4 * 7 * cells, 0)
+    read, _ = bound(4 * (6 * reach + cells), 0)
+    print(f"[times] {'ds_residual_var3':27s} {op.grid_shape}: kernel "
+          f"{kp[0]:.3f} ms, plain {kp[1]:.3f} ms, bound {full:.3f} ms on "
+          f"full arrays ({100 * full / kp[0]:.1f} %), {read:.3f} ms on the "
+          f"cells read ({100 * read / kp[0]:.1f} %) (bytes)  ({card})")
+    del op, b, u_hi, u_lo
+    torch.cuda.empty_cache()
 
 
 def bound(nbytes, flops):
@@ -4747,6 +4814,7 @@ def main():
     record3d = phase_slice3d()
     prob_var3, host3, setup3 = var3_setup()
     phase_var_kernels3d(errs, prob_var3)
+    phase_var_residual3(prob_var3)
     record_var3d = phase_slice_var3(prob_var3, host3, setup3)
     prob_aniso, host_a, setup_a = aniso_setup()
     phase_aniso_kernels(errs, prob_aniso)

@@ -1554,3 +1554,92 @@ def test_refined_var3d_matches_the_cpu(gen):
     # One fused pair at level 7: (144, 144, 256) -> (80, 80, 128).
     assert counts["var_smooth_restrict3"] == it
     assert counts["var_prolong_smooth3"] == it
+    # One float64 flux-form residual an iteration, all on the kernel.
+    assert counts["ds_residual_var3"] == it
+
+
+# ---------------------------------------------------------------------------
+# The 3D flux stencil's float64 residual: ds_residual_var3 (a column march)
+# ---------------------------------------------------------------------------
+
+def _var3_op(level, shift):
+    """The finest operator of a level-``level`` HPGMG-FV problem on the card
+    (padded: Sx != S), with the reaction plane when ``shift``."""
+    cfg = tmg.MultigridConfig(finest_level=level, smoother="chebyshev",
+                              nu1=3, nu2=2, use_kernels=True)
+    kw = {"shift": lambda x, y, z: 50.0 * (1 + x * y * z)} if shift else {}
+    op = tmg.Diffusion3DProblem(cfg, coefficient=_hpgmg_beta, device="cuda",
+                                **kw).hierarchy.levels[0]
+    assert (op.c2 is not None) == shift and op.S != op.Sx
+    return op
+
+
+def _var3_pair(shape, gen):
+    """u_hi ~N(0, 1), u_lo within half an ulp of it, b ~1e-3 N(0, 1)."""
+    u_hi = torch.randn(shape, generator=gen, device="cuda")
+    ulp = (torch.nextafter(u_hi.abs(), torch.tensor(float("inf"),
+                                                    device="cuda"))
+           - u_hi.abs())
+    u_lo = (torch.rand(shape, generator=gen, device="cuda") - 0.5) * ulp
+    return u_hi, u_lo, 1e-3 * torch.randn(shape, generator=gen,
+                                          device="cuda")
+
+
+def _past_n(a, n, gen):
+    """A copy of ``a`` with large noise in every cell past n on some axis."""
+    out = a.clone()
+    noise = 1e3 * torch.randn(a.shape, generator=gen, device="cuda")
+    past = torch.ones(a.shape, dtype=torch.bool, device="cuda")
+    past[:n + 1, :n + 1, :n + 1] = False
+    out[past] = noise[past]
+    return out
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("level", [4, 5, 7])
+def test_var_residual_kernel_matches_plain_bitwise(gen, level, shift):
+    """The kernel against the plain float64 z-slab body on the same CUDA
+    tensors, bit for bit; every input and plane holds noise past n, which
+    neither may read; r is zero outside 1..n-1."""
+    op = _var3_op(level, shift)
+    n = op.n
+    u_hi, u_lo, b = _var3_pair(op.grid_shape, gen)
+    want = precision.ds_residual_var3_plain(op, b, u_hi, u_lo)
+    op_n = type(op)(*(_past_n(t, n, gen) for t in (op.tz, op.ty, op.tx)),
+                    op.inv_diag, n, op.S, op.Sx,
+                    c2=_past_n(op.c2, n, gen) if shift else None)
+    args = [_past_n(t, n, gen) for t in (b, u_hi, u_lo)]
+    kernels.reset_launch_counts()
+    got = compres.ds_residual_var3(op_n, *args)
+    assert kernels.launch_counts()["ds_residual_var3"] == 1
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    inner = torch.zeros_like(got, dtype=torch.bool)
+    inner[1:n, 1:n, 1:n] = True
+    assert not got[~inner].any() and got[inner].any()
+    # The plain body on the noisy inputs reads the same cells.
+    assert torch.equal(precision.ds_residual_var3_plain(op_n, *args), want)
+
+
+def test_var_residual_dispatch_and_launch_counts(gen):
+    """``precision.ds_residual_var3`` launches the kernel once a call on
+    float32 CUDA tensors, keeps float64 on the plain body, and the wrapper
+    refuses grids that do not match the operator's."""
+    op = _var3_op(4, False)
+    u_hi, u_lo, b = _var3_pair(op.grid_shape, gen)
+    kernels.reset_launch_counts()
+    for k in range(1, 4):
+        precision.ds_residual_var3(op, b, u_hi, u_lo)
+        assert {k2: v for k2, v in kernels.launch_counts().items() if v} == {
+            "ds_residual_var3": k}
+    op64 = type(op)(op.tz.double(), op.ty.double(), op.tx.double(),
+                    op.inv_diag.double(), op.n, op.S, op.Sx)
+    r64 = precision.ds_residual_var3(op64, b.double(), u_hi.double(),
+                                     u_lo.double())
+    assert r64.dtype == torch.float64
+    with pytest.raises(ValueError):     # shapes differ from the planes'
+        compres.ds_residual_var3(op, b[:, :, :64].contiguous(),
+                                 u_hi[:, :, :64].contiguous(),
+                                 u_lo[:, :, :64].contiguous())
+    with pytest.raises(ValueError):     # not contiguous
+        compres.ds_residual_var3(op, b, u_hi.transpose(0, 1), u_lo)
+    assert kernels.launch_counts()["ds_residual_var3"] == 3

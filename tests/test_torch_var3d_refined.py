@@ -152,6 +152,38 @@ def test_var_residual_takes_the_reaction_plane():
                                atol=2e-7 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("shift", [None, lambda x, y, z: 50.0 * (1 + x * y)])
+def test_var_residual_on_the_cpu_takes_the_plain_body(shift, monkeypatch):
+    """On CPU tensors the dispatch and the kernel's wrapper both return the
+    plain z-slab body, and neither reaches a launch."""
+    kw = {} if shift is None else {"shift": shift}
+    op = _problem(4, **kw).hierarchy.levels[0]
+    assert (op.c2 is not None) == (shift is not None)
+    u_hi, u_lo, b = _pair(op.grid_shape, 4)
+    want = precision.ds_residual_var3_plain(op, b, u_hi, u_lo)
+    plain = precision.ds_residual_var3_plain
+    calls = []
+    monkeypatch.setattr(precision, "ds_residual_var3_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setattr(compres, "_launch",
+                        lambda *a: pytest.fail("launched on the CPU"))
+    assert torch.equal(precision.ds_residual_var3(op, b, u_hi, u_lo), want)
+    assert torch.equal(compres.ds_residual_var3(op, b, u_hi, u_lo), want)
+    assert len(calls) == 2
+    assert compres.LAUNCHES["ds_residual_var3"] == 0
+
+
+@pytest.mark.parametrize("dtype, planes, want", [
+    (torch.float32, torch.float32, True),
+    (torch.float64, torch.float32, False),
+    (torch.float32, torch.float64, False),
+    (torch.float64, torch.float64, False)])
+def test_var_residual_kernel_gate(dtype, planes, want):
+    op = _problem(4).hierarchy.levels[0]
+    op.tz = op.tz.to(planes)
+    assert compres.supported_var3(op, dtype) is want
+
+
 def _rel_res(ref64, b, parts, n):
     u = sum(_nodes(p, n).double() for p in parts)
     b64 = _nodes(b, n).double()

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "tmt_ds_residual3": ([_P] * 4 + [_I] * 4 + [_P], _I),
     # b, u_hi, u_mid, u_lo, r, Sz, Sy, Sx, n, stream
     "tmt_ts_residual3": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    # b, u_hi, u_lo, tz, ty, tx, c2 (or null), r, Sz, Sy, Sx, n, stream
+    "tmt_ds_residual_var3": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "tmt_var_tile": ([], _I),
     "tmt_var_max_halo": ([_I], _I),
     # u, b, coef, u_out, r_out, S, n, steps, rbgs, nplanes, weights, count,

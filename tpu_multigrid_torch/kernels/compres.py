@@ -19,7 +19,7 @@ import torch
 from . import _build
 
 LAUNCHES = {"ds_residual": 0, "ts_residual": 0, "ds_residual3": 0,
-            "ts_residual3": 0}
+            "ts_residual3": 0, "ds_residual_var3": 0}
 
 
 def supported(S: int, dtype) -> bool:
@@ -32,14 +32,23 @@ def supported3(shape, dtype) -> bool:
     return dtype == torch.float32 and len(shape) == 3
 
 
+def supported_var3(op, dtype) -> bool:
+    """The flux stencils the float64 var kernel takes: float32 grids and
+    planes."""
+    return dtype == op.tz.dtype == torch.float32
+
+
 def _launch(entry, arrays, n, shape, sizes):
     """Check the arrays against ``shape``, launch ``tmt_<entry>`` on the
-    grid ``sizes`` (S in 2D, Sz, Sy, Sx in 3D), count the launch."""
-    _build.check_inputs(entry, arrays, [shape] * len(arrays))
+    grid ``sizes`` (S in 2D, Sz, Sy, Sx in 3D), count the launch.  An array
+    given as None is passed as a null pointer."""
+    given = [a for a in arrays if a is not None]
+    _build.check_inputs(entry, given, [shape] * len(given))
     r = torch.empty_like(arrays[0])
     fn = getattr(_build.lib(), f"tmt_{entry}")
     with torch.cuda.device(r.device):
-        err = fn(*(a.data_ptr() for a in arrays), r.data_ptr(), *sizes, n,
+        err = fn(*(None if a is None else a.data_ptr() for a in arrays),
+                 r.data_ptr(), *sizes, n,
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, entry)
     LAUNCHES[entry] += 1
@@ -94,3 +103,15 @@ def ts_residual3(b, u_hi, u_mid, u_lo, n: int):
         from .. import precision
         return precision.ts_residual(b, u_hi, u_mid, u_lo, n)
     return _launch3("ts_residual3", (b, u_hi, u_mid, u_lo), n)
+
+
+def ds_residual_var3(op, b, u_hi, u_lo):
+    """r = b - A(u_hi + u_lo) of the flux stencil ``op`` (``VarStencilOp3D``)
+    in float64, rounded once to float32, masked to 1..n-1 on every axis,
+    zero elsewhere; its planes tz, ty, tx (and c2) are (Sz, Sy, Sx) like
+    b."""
+    if b.device.type == "cpu":
+        from .. import precision
+        return precision.ds_residual_var3_plain(op, b, u_hi, u_lo)
+    return _launch3("ds_residual_var3",
+                    (b, u_hi, u_lo, op.tz, op.ty, op.tx, op.c2), op.n)

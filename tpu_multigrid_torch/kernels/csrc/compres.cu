@@ -1,5 +1,6 @@
 // Compensated residuals of a double-single or triple-single iterate, for
-// Hopper (sm_90a).
+// Hopper (sm_90a); and the 3D flux stencil's residual in float64 (its own
+// section below).
 //
 // Replaces the Pallas TPU kernel tpu_multigrid/kernels/compres.py::
 // _comp_residual, both its entries:
@@ -201,6 +202,142 @@ int launch_comp_residual3(const void* b, const void* u0, const void* u1,
   return cudaGetLastError();
 }
 
+// ---- 3D flux stencil: the float64 residual (ds_residual_var3) ----
+//
+// r = fl32(b - A(u_hi + u_lo)) for the variable-coefficient 7-point flux
+// stencil (VarStencilOp3D): (A u)_i = sum_f t_f (u_i - u_f) over the faces
+// x+, x-, y+, y-, z+, z- from the float32 transmissibility planes tz, ty, tx
+// (the minus faces are the planes one node back), plus c2_i u_i where the
+// operator has a reaction plane, masked to 1..n-1 on every axis.
+//
+// It replaces no TPU kernel: the JAX package evaluates this residual in
+// jnp.  It was added because the plain torch version (precision.py::
+// ds_residual_var3_plain: about 25 ops over each of nine z-slabs of 2^24
+// nodes, each writing a float64 temporary) took 20.2 ms a call at (528,
+// 528, 640) on an H100, 41 % of the card's busy time in a refined 513^3
+// variable-beta solve.
+//
+// What bounds it: device-memory traffic.  b, u_hi, u_lo and the planes tz,
+// ty, tx read and r written: 7 passes of Sz*Sy*Sx*4 bytes, 4.99 GB at
+// (528, 528, 640) (1.49 ms at 3.35 TB/s; 1.18 ms counting only the cells
+// the interior reads, 0..n on every axis), 8 with the reaction plane.  The
+// float64 work, some 30 operations and 18 conversions a node, stays under
+// it.
+//
+// What the design does about it: comp_residual3_kernel's column march.  A
+// block of 64 x 4 threads covers a (y, x) tile of kVZ planes, each thread
+// one column; the thread keeps u = (double)u_hi + (double)u_lo at z - 1, z
+// and z + 1 and tz at z - 1 in registers, so the z faces cost no load
+// beyond the column's own; the x and y neighbours of u_hi and u_lo and the
+// minus-face planes tx[x - 1] and ty[y - 1] come through L1 from the
+// block's own rows; the blocks run z-major.  r is written once, coalesced,
+// with the zeros of the masked nodes and the padding in the same pass.
+// Cells outside 0..n on some axis are never read.  32 registers a thread,
+// no spills: 8 blocks of 256 threads an SM.  At (528, 528, 640) it runs
+// 1.68 ms, 89 % of the full-array bound (1.80-1.84 ms with the reaction
+// plane); 4 and 16 planes a thread ran 1.77 / 1.74 ms, and the x
+// neighbours exchanged by warp shuffles (fewer loads and conversions, the
+// warp kept in lockstep) 1.64 ms, too little for its control flow.
+//
+// Arithmetic: the plain version's order, each step rounded on its own:
+//   acc = tx(x) (c - u[x+1]); acc += tx(x-1) (c - u[x-1]); then y+, y-, z+,
+//   z-; then acc += c2 c; r = fl32((double)b - acc)
+// through __dadd_rn / __dsub_rn / __dmul_rn / __double2float_rn, which the
+// compiler neither contracts nor reassociates: r equals the plain version's
+// bit for bit.  Each neighbour's u_hi + u_lo is widened where it is read;
+// the sum is the same float64 value wherever it is formed.
+
+constexpr int kVZ = 8;  // planes a thread marches
+
+// u_hi + u_lo at offset o, in float64.
+__device__ __forceinline__ double wide(const float* __restrict__ uh,
+                                       const float* __restrict__ ul,
+                                       size_t o) {
+  return __dadd_rn(static_cast<double>(__ldg(uh + o)),
+                   static_cast<double>(__ldg(ul + o)));
+}
+
+// acc + t (c - v), each operation rounded on its own.
+__device__ __forceinline__ double flux(double acc, float t, double c,
+                                       double v) {
+  return __dadd_rn(acc, __dmul_rn(static_cast<double>(t), __dsub_rn(c, v)));
+}
+
+// Thread (x, y) of block bz owns the planes kVZ bz .. kVZ bz + kVZ - 1;
+// kC2: the operator has a reaction plane c2.
+template <bool kC2>
+__global__ void __launch_bounds__(kCX * kCY)
+    ds_residual_var3_kernel(const float* __restrict__ b,
+                            const float* __restrict__ uh,
+                            const float* __restrict__ ul,
+                            const float* __restrict__ tz,
+                            const float* __restrict__ ty,
+                            const float* __restrict__ tx,
+                            const float* __restrict__ c2,
+                            float* __restrict__ r, int Sz, int Sy, int Sx,
+                            int n) {
+  const int x = blockIdx.x * kCX + threadIdx.x;
+  const int y = blockIdx.y * kCY + threadIdx.y;
+  const int z0 = blockIdx.z * kVZ;
+  if (x >= Sx || y >= Sy) return;
+  const size_t plane = (size_t)Sy * Sx;
+  const size_t k0 = ((size_t)z0 * Sy + y) * Sx + x;
+  if (!(y >= 1 && y <= n - 1 && x >= 1 && x <= n - 1)) {
+#pragma unroll
+    for (int k = 0; k < kVZ; ++k)
+      if (z0 + k < Sz) r[k0 + k * plane] = 0.0f;
+    return;
+  }
+  // The column at z - 1 (u and the z- face's plane) and at z.
+  const bool below = z0 >= 1 && z0 - 1 <= n;
+  double um = below ? wide(uh, ul, k0 - plane) : 0.0;
+  float tzm = below ? __ldg(tz + k0 - plane) : 0.0f;
+  double uc = z0 <= n ? wide(uh, ul, k0) : 0.0;
+#pragma unroll
+  for (int k = 0; k < kVZ; ++k) {
+    const int z = z0 + k;
+    if (z >= Sz) break;
+    const size_t o = k0 + k * plane;
+    const double up = z + 1 <= n ? wide(uh, ul, o + plane) : 0.0;
+    const float tzc = z <= n - 1 ? __ldg(tz + o) : 0.0f;
+    float out = 0.0f;
+    if (z >= 1 && z <= n - 1) {
+      double acc = __dmul_rn(static_cast<double>(__ldg(tx + o)),
+                             __dsub_rn(uc, wide(uh, ul, o + 1)));
+      acc = flux(acc, __ldg(tx + o - 1), uc, wide(uh, ul, o - 1));
+      acc = flux(acc, __ldg(ty + o), uc, wide(uh, ul, o + Sx));
+      acc = flux(acc, __ldg(ty + o - Sx), uc, wide(uh, ul, o - Sx));
+      acc = flux(acc, tzc, uc, up);
+      acc = flux(acc, tzm, uc, um);
+      if constexpr (kC2)
+        acc = __dadd_rn(acc, __dmul_rn(static_cast<double>(__ldg(c2 + o)),
+                                       uc));
+      out = __double2float_rn(
+          __dsub_rn(static_cast<double>(__ldg(b + o)), acc));
+    }
+    r[o] = out;
+    um = uc;
+    uc = up;
+    tzm = tzc;
+  }
+}
+
+template <bool kC2>
+int launch_ds_residual_var3(const void* b, const void* uh, const void* ul,
+                            const void* tz, const void* ty, const void* tx,
+                            const void* c2, void* r, int Sz, int Sy, int Sx,
+                            int n, void* stream) {
+  const dim3 grid((Sx + kCX - 1) / kCX, (Sy + kCY - 1) / kCY,
+                  (Sz + kVZ - 1) / kVZ);
+  ds_residual_var3_kernel<kC2><<<grid, dim3(kCX, kCY), 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<const float*>(uh),
+      static_cast<const float*>(ul), static_cast<const float*>(tz),
+      static_cast<const float*>(ty), static_cast<const float*>(tx),
+      static_cast<const float*>(c2), static_cast<float*>(r), Sz, Sy, Sx, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -235,6 +372,20 @@ int tmt_ts_residual3(const void* b, const void* uh, const void* um,
                      const void* ul, void* r, int Sz, int Sy, int Sx, int n,
                      void* stream) {
   return launch_comp_residual3<3>(b, uh, um, ul, r, Sz, Sy, Sx, n, stream);
+}
+
+// The flux stencil's float64 residual: contiguous (Sz, Sy, Sx) float32
+// arrays b, u_hi, u_lo and planes tz, ty, tx, c2 (null: no reaction plane),
+// 1 <= n <= min(Sz, Sy, Sx) - 1 (the wrapper checks both).
+int tmt_ds_residual_var3(const void* b, const void* uh, const void* ul,
+                         const void* tz, const void* ty, const void* tx,
+                         const void* c2, void* r, int Sz, int Sy, int Sx,
+                         int n, void* stream) {
+  if (c2 != nullptr)
+    return launch_ds_residual_var3<true>(b, uh, ul, tz, ty, tx, c2, r, Sz,
+                                         Sy, Sx, n, stream);
+  return launch_ds_residual_var3<false>(b, uh, ul, tz, ty, tx, c2, r, Sz, Sy,
+                                        Sx, n, stream);
 }
 
 }  // extern "C"

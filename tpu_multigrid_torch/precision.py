@@ -11,7 +11,7 @@ deeper residuals out of f32 storage:
   transformations (TwoSum/Neumaier compensation; 4*u_hi is exact),
   accurate to ~eps^2 — one launch of a ``kernels.compres`` kernel on the
   card, 2D or 3D; for the 3D flux stencil (``VarStencilOp3D``) in float64
-  (:func:`ds_residual_var3`);
+  (:func:`ds_residual_var3`, a kernel of its own on the card too);
 * the outer loop is iterative refinement with one multigrid cycle as the
   inner solver: e = MG(r); u += e (compensated accumulation).
 
@@ -156,12 +156,23 @@ def ts_residual(b, u_hi, u_mid, u_lo, n: int):
     return _mask_nd(r, n)
 
 
-# Nodes of one float64 temporary of :func:`ds_residual_var3` (128 MiB): it
-# works in z-slabs of about this many nodes.
+# Nodes of one float64 temporary of :func:`ds_residual_var3_plain` (128
+# MiB): it works in z-slabs of about this many nodes.
 VAR3_SLAB_NODES = 1 << 24
 
 
 def ds_residual_var3(op, b, u_hi, u_lo):
+    """r = b - A(u_hi + u_lo) for a 3D flux stencil ``op``
+    (``VarStencilOp3D``) in float64, rounded once to float32, masked to the
+    interior: one launch of ``kernels.compres.ds_residual_var3`` on float32
+    CUDA tensors, else :func:`ds_residual_var3_plain`, which the kernel
+    equals bitwise."""
+    if b.device.type == "cuda" and compres.supported_var3(op, b.dtype):
+        return compres.ds_residual_var3(op, b, u_hi, u_lo)
+    return ds_residual_var3_plain(op, b, u_hi, u_lo)
+
+
+def ds_residual_var3_plain(op, b, u_hi, u_lo):
     """r = b - A(u_hi + u_lo) for a 3D flux stencil ``op``
     (``VarStencilOp3D``), evaluated in float64 from the float32 inputs and
     rounded once to float32, masked to the interior.
@@ -185,7 +196,7 @@ def ds_residual_var3(op, b, u_hi, u_lo):
 
     Plain torch ops, the same on the card and on the CPU, over z-slabs of
     about ``VAR3_SLAB_NODES`` nodes, so that the float64 temporaries stay
-    a few slabs in size."""
+    a few slabs in size: the CPU path, and the kernel's oracle."""
     n = op.n
     tz, ty, tx, c2 = op.tz, op.ty, op.tx, op.c2
     r = torch.zeros_like(b)
