@@ -158,7 +158,7 @@ def test_ds_residual_never_reaches_the_2d_kernel():
     b = torch.zeros((144, 144, 256))
     b[1:128, 1:128, 1:128] = 1.0
     op = operators.ConstStencilOp3D(128, 144, 256)
-    r = precision._ds_residual_d(b, b, torch.zeros_like(b), op, True)
+    r = precision._comp_residual(b, (b, torch.zeros_like(b)), op, True)
     assert torch.equal(r, precision.ds_residual(b, b, torch.zeros_like(b),
                                                 128))
 
@@ -189,10 +189,11 @@ def test_residual3_entries_on_cpu_are_the_plain_versions(shape, n):
 def test_residual3_dispatch_on_cpu_equals_the_plain_versions(use_kernels):
     b, uh, um, ul = _components3((48, 48, 128), 32, 4)
     op = operators.ConstStencilOp3D(32, 48, 128)
-    assert torch.equal(precision._ds_residual_d(b, uh, um, op, use_kernels),
+    assert torch.equal(precision._comp_residual(b, (uh, um), op,
+                                                use_kernels),
                        precision.ds_residual(b, uh, um, 32))
     assert torch.equal(
-        precision._ts_residual_d(b, uh, um, ul, op, use_kernels),
+        precision._comp_residual(b, (uh, um, ul), op, use_kernels),
         precision.ts_residual(b, uh, um, ul, 32))
 
 

@@ -1544,7 +1544,8 @@ def test_refined_var3d_matches_the_cpu(gen):
             prob.hierarchy, cfg, b, tol=1e-8)
         counts = kernels.launch_counts()
         op = prob.hierarchy.levels[0].to("cpu")
-        r = precision.ds_residual_var3(op, b.cpu(), u_hi.cpu(), u_lo.cpu())
+        r = precision._comp_residual(b.cpu(), (u_hi.cpu(), u_lo.cpu()), op,
+                                     False)
         rel = float(torch.linalg.vector_norm(r.double())
                     / torch.linalg.vector_norm(b.cpu().double()))
         got[device] = (it, ok, rel, counts)
@@ -1621,20 +1622,21 @@ def test_var_residual_kernel_matches_plain_bitwise(gen, level, shift):
 
 
 def test_var_residual_dispatch_and_launch_counts(gen):
-    """``precision.ds_residual_var3`` launches the kernel once a call on
-    float32 CUDA tensors, keeps float64 on the plain body, and the wrapper
-    refuses grids that do not match the operator's."""
+    """The refinement's residual dispatch (``precision._comp_residual``)
+    launches the kernel once a call on a flux stencil's float32 CUDA
+    tensors, with or without ``use_kernels``, keeps float64 on the plain
+    body, and the wrapper refuses grids that do not match the operator's."""
     op = _var3_op(4, False)
     u_hi, u_lo, b = _var3_pair(op.grid_shape, gen)
     kernels.reset_launch_counts()
     for k in range(1, 4):
-        precision.ds_residual_var3(op, b, u_hi, u_lo)
+        precision._comp_residual(b, (u_hi, u_lo), op, k % 2 == 0)
         assert {k2: v for k2, v in kernels.launch_counts().items() if v} == {
             "ds_residual_var3": k}
     op64 = type(op)(op.tz.double(), op.ty.double(), op.tx.double(),
                     op.inv_diag.double(), op.n, op.S, op.Sx)
-    r64 = precision.ds_residual_var3(op64, b.double(), u_hi.double(),
-                                     u_lo.double())
+    r64 = precision._comp_residual(
+        b.double(), (u_hi.double(), u_lo.double()), op64, True)
     assert r64.dtype == torch.float64
     with pytest.raises(ValueError):     # shapes differ from the planes'
         compres.ds_residual_var3(op, b[:, :, :64].contiguous(),

@@ -149,8 +149,8 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     assert torch.equal(TC.ds_residual(*map(torch.tensor, ds), n),
                        precision.ds_residual(*map(torch.tensor, ds), n))
     ts = [torch.tensor(a) for a in _components(S, n, 3, seed=6)]
-    assert torch.equal(precision._ts_residual_d(*ts, ConstStencilOp(n, S),
-                                                True),
+    assert torch.equal(precision._comp_residual(ts[0], ts[1:],
+                                                ConstStencilOp(n, S), True),
                        precision.ts_residual(*ts, n))
     assert set(kernels.launch_counts().values()) == {0}
 

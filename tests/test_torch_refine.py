@@ -94,34 +94,31 @@ def test_cycle_ds_below_ds_levels_is_the_plain_cycle():
                                        b3))
 
 
-def test_solve_refined_ds_with_ds_levels_matches_jax():
-    pj, cj, pt, ct = _pair(6, 3)
-    jout = jprecision.solve_refined_ds(pj.hierarchy, cj, pj.rhs(), tol=1e-10,
-                                       max_iters=40, ds_levels=3)
-    tout = precision.solve_refined_ds(pt.hierarchy, ct, pt.rhs(), tol=1e-10,
-                                      max_iters=40, ds_levels=3)
-    assert tout[3] == int(jout[3]) and tout[4] is True and bool(jout[4])
-    assert tout[2].dtype == torch.float32 and tout[2].device.type == "cpu"
-    np.testing.assert_allclose(tout[2].numpy(), np.asarray(jout[2]),
-                               rtol=1e-4)
-    assert _f64_rel_residual(pt.rhs(), tout[:2], 64) < 5e-10
+# Each refinement entry against the JAX one: ds with three ds levels at
+# level 6 to 1e-10; ts at level 7 to 1e-12, as tests/test_precision.py runs
+# the JAX one.
+REFINED = {"ds": (6, 1e-10, dict(ds_levels=3)), "ts": (7, 1e-12, {})}
 
 
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_solve_refined_ts_matches_jax(use_kernels):
-    """Level 7 to tol 1e-12, as tests/test_precision.py runs the JAX one."""
-    pj, cj, pt, ct = _pair(7, 3, use_kernels)
-    jout = jprecision.solve_refined_ts(pj.hierarchy, cj, pj.rhs(), tol=1e-12,
-                                       max_iters=40)
-    tout = precision.solve_refined_ts(pt.hierarchy, ct, pt.rhs(), tol=1e-12,
-                                      max_iters=40)
-    u_hi, u_mid, u_lo, hist, iters, ok = tout
-    assert ok is True and bool(jout[5])
-    assert iters == int(jout[4])
-    assert hist.dtype == torch.float32 and hist.shape == (41,)
-    np.testing.assert_allclose(hist.numpy(), np.asarray(jout[3]), rtol=1e-4)
-    assert hist[iters] <= 1e-12 * hist[0]
-    assert _f64_rel_residual(pt.rhs(), (u_hi, u_mid, u_lo), 128) < 5e-12
+@pytest.mark.parametrize("kind, use_kernels", [("ds", False), ("ts", False),
+                                               ("ts", True)])
+def test_solve_refined_matches_jax(kind, use_kernels):
+    level, tol, kw = REFINED[kind]
+    pj, cj, pt, ct = _pair(level, 3, use_kernels)
+    entry = f"solve_refined_{kind}"
+    jout = getattr(jprecision, entry)(pj.hierarchy, cj, pj.rhs(), tol=tol,
+                                       max_iters=40, **kw)
+    tout = getattr(precision, entry)(pt.hierarchy, ct, pt.rhs(), tol=tol,
+                                      max_iters=40, **kw)
+    *parts, hist, iters, ok = tout
+    assert len(parts) == (2 if kind == "ds" else 3)
+    assert ok is True and bool(jout[-1])
+    assert iters == int(jout[-2])
+    assert hist.dtype == torch.float32 and hist.device.type == "cpu"
+    assert hist.shape == (41,)
+    np.testing.assert_allclose(hist.numpy(), np.asarray(jout[-3]), rtol=1e-4)
+    assert hist[iters] <= tol * hist[0]
+    assert _f64_rel_residual(pt.rhs(), parts, 2 ** level) < 5 * tol
 
 
 def test_solve_refined_ts_fixed_count_and_guards():

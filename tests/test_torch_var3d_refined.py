@@ -300,7 +300,7 @@ def test_the_u0_residual_refuses_directly():
     prob = _refused_problems()["VarStencilOp"]
     b = prob.rhs()
     with pytest.raises(NotImplementedError, match="VarStencilOp"):
-        precision._ds_residual_d(b, b, b, prob.hierarchy.levels[0], False)
+        precision._comp_residual(b, (b, b), prob.hierarchy.levels[0], False)
 
 
 def test_ts_refuses_the_var_operator():
@@ -366,12 +366,10 @@ def test_poisson_refined_paths_keep_their_bits(ndim, path, use_kernels,
     b = prob.rhs()
     now = _run(path, prob.hierarchy, cfg, b)
     assert now[-2] == BEFORE[(ndim, path)] and now[-1] is True
-    monkeypatch.setattr(precision, "_ds_residual_d",
-                        lambda b, hi, lo, op, uk: _ds_residual_before(
-                            b, hi, lo, op.n, uk))
-    monkeypatch.setattr(precision, "_ts_residual_d",
-                        lambda b, hi, mid, lo, op, uk: _ts_residual_before(
-                            b, hi, mid, lo, op.n, uk))
+    monkeypatch.setattr(precision, "_comp_residual",
+                        lambda b, parts, op, uk: (
+                            _ds_residual_before if len(parts) == 2
+                            else _ts_residual_before)(b, *parts, op.n, uk))
     before = _run(path, prob.hierarchy, cfg, b)
     assert now[-2] == before[-2]
     for x, y in zip(now[:-3], before[:-3]):

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import precision
 from ..config import MultigridConfig
 from ..core.grids import Hierarchy
 from ..cycles import SolveResult, _coarsest_solve, _sm
@@ -69,17 +70,15 @@ def _cycle_ds_pallas(mesh: GridMesh, levels: ShardedLevels, hier: Hierarchy,
     e0, rc = KL.smooth_restrict_ext(torch.zeros_like(r_ext), r_ext, origin,
                                     n, cfg.nu1, sm1, om1)
 
-    ds_limit = min(ds_levels, levels.num_sharded)
-    if k + 1 < ds_limit:
+    if k + 1 < levels.num_sharded:
         rc = refresh_ghosts(mesh, rc, n // 2, lr // 2, lc // 2, drt, dct)
-        ec_hi, ec_lo = _cycle_ds_pallas(mesh, levels, hier, cfg, k + 1, rc,
-                                        ds_levels, halo)
+    if k + 1 < min(ds_levels, levels.num_sharded):
+        ec = _cycle_ds_pallas(mesh, levels, hier, cfg, k + 1, rc, ds_levels,
+                              halo)
     elif k + 1 < levels.num_sharded:
-        rc = refresh_ghosts(mesh, rc, n // 2, lr // 2, lc // 2, drt, dct)
-        ec_hi = _vcycle_pallas(mesh, levels, hier, cfg, k + 1,
-                               torch.zeros_like(rc), rc, halo=halo,
-                               u_ghosts_fresh=True)
-        ec_lo = torch.zeros_like(ec_hi)
+        ec = (_vcycle_pallas(mesh, levels, hier, cfg, k + 1,
+                             torch.zeros_like(rc), rc, halo=halo,
+                             u_ghosts_fresh=True),)
     else:
         rc_full = gather_owned(mesh, rc)
         ec_full = torch.zeros_like(rc_full)
@@ -87,15 +86,14 @@ def _cycle_ds_pallas(mesh: GridMesh, levels: ShardedLevels, hier: Hierarchy,
             ec_full = _coarsest_solve(hier, cfg, ec_full, rc_full)
         else:
             ec_full = _replicated_cycle(hier, cfg, k + 1, ec_full, rc_full)
-        ec_hi = scatter_owned(mesh, ec_full, lr // 2, lc // 2,
-                              dtype=r_ext.dtype)
-        ec_lo = torch.zeros_like(ec_hi)
+        ec = (scatter_owned(mesh, ec_full, lr // 2, lc // 2,
+                            dtype=r_ext.dtype),)
+    if len(ec) == 1:
+        ec += (torch.zeros_like(ec[0]),)
 
     # The exact-pair prolongation reads the coarse pair to (GR/2, GC/2).
-    ec_hi = refresh_ghosts(mesh, ec_hi, n // 2, lr // 2, lc // 2, GR // 2,
-                           GC // 2)
-    ec_lo = refresh_ghosts(mesh, ec_lo, n // 2, lr // 2, lc // 2, GR // 2,
-                           GC // 2)
+    ec_hi, ec_lo = (refresh_ghosts(mesh, c, n // 2, lr // 2, lc // 2, GR // 2,
+                                   GC // 2) for c in ec)
     p_hi, p_lo = KR.prolong_pair_ext(ec_hi, ec_lo, origin, n)
     e_hi, e_lo = KR.comp_add_ext((p_hi, p_lo), (e0,))
 
@@ -137,8 +135,7 @@ def refined_sharded_solve_pallas(config: MultigridConfig, mesh: GridMesh, *,
     solve's raises ``ValueError``.  The JAX package's ``jit`` and
     ``return_runner`` (a traced program for reuse) have no counterpart
     here: each call runs eagerly."""
-    if tol is None and num_cycles is None:
-        raise ValueError("refined solve needs tol or num_cycles")
+    precision._check_modes(tol, num_cycles)
     my, mx = mesh.shape
     cfg = dataclasses.replace(config, cycle="V")
     if prebuilt is not None:
@@ -166,8 +163,6 @@ def refined_sharded_solve_pallas(config: MultigridConfig, mesh: GridMesh, *,
         raise ValueError(f"local block ({lr}x{lc}) outside the compensated "
                          "kernels' envelope (float32, 16/256 quanta)")
     origin = _ext_origin(mesh, lr, lc)
-    fixed = num_cycles is not None
-    ncyc = num_cycles if fixed else max_iters
     _, dru, dcu, _, _ = _halo_depths(cfg, halo)
 
     b_ext = rhs_ext(mesh, n0, lr, lc, forcing, cfg.dtype)
@@ -179,19 +174,14 @@ def refined_sharded_solve_pallas(config: MultigridConfig, mesh: GridMesh, *,
         # The components' ghosts must be fresh to 1 ring (quanta 8/128).
         comps = tuple(refresh_ghosts(mesh, c, n0, lr, lc, 8, 128)
                       for c in comps)
-        if ts:
-            return KR.ts_residual_ext(b_ext, *comps, origin, n0)
-        return KR.ds_residual_ext(b_ext, *comps, origin, n0)
+        residual = KR.ts_residual_ext if ts else KR.ds_residual_ext
+        return residual(b_ext, *comps, origin, n0)
 
     comps = tuple(torch.zeros_like(b_ext) for _ in range(3 if ts else 2))
     r = b_ext   # its ghosts are fresh
-    r0 = owned_norm(r)
-    target = np.float32(tol) * r0 if tol is not None else np.float32(0.0)
-    sf = np.float32(stall_factor)
-    hist = np.full((ncyc + 1,), np.nan, np.float32)
-    hist[0] = r0
-    i, rnorm, prev = 0, r0, np.float32(np.inf)
-    while i < ncyc and (fixed or (rnorm > target and rnorm < sf * prev)):
+    loop = precision._RefinementLoop(owned_norm(r), tol, stall_factor,
+                                     num_cycles, max_iters)
+    while loop.running():
         if ds_levels > 0:
             e = _cycle_ds_pallas(mesh, levels, hier, cfg, 0, r, ds_levels,
                                  halo)
@@ -203,11 +193,9 @@ def refined_sharded_solve_pallas(config: MultigridConfig, mesh: GridMesh, *,
         r = resid(comps)
         # The next K1 launch reads r to the smoothing depth.
         r = refresh_ghosts(mesh, r, n0, lr, lc, dru, dcu)
-        prev, rnorm = rnorm, owned_norm(r)
-        hist[i + 1] = rnorm
-        i += 1
-    conv = True if fixed else bool(rnorm <= target)
+        loop.record(owned_norm(r))
+    hist, iters, conv = loop.outcome()
     owned = tuple(owned_view(c) for c in comps)
-    return RefinedSolveResult(u=owned[0], res_history=torch.from_numpy(hist),
-                              iterations=i, converged=conv,
+    return RefinedSolveResult(u=owned[0], res_history=hist,
+                              iterations=iters, converged=conv,
                               components=owned), levels

@@ -82,22 +82,20 @@ def _apply_a(x):
     return 4.0 * x - (((t[0] + t[1]) + t[2]) + t[3])
 
 
-def ds_residual_ext_plain(b, u_hi, u_lo, origin, n: int):
-    precision = _precision()
-    nbr_h, c_h = _nbr_comp(u_hi)
-    r = precision._ds_cascade(b, u_hi, nbr_h, c_h, _apply_a(u_lo))
+def _residual_ext_plain(b, parts, origin, n: int):
+    lead = parts[:-1]
+    r = _precision()._cascade(b, lead, [_nbr_comp(p) for p in lead],
+                              _apply_a(parts[-1]))
     R, C = b.shape
     return torch.where(_masks(R, C, origin, n, b.device)[0], r, 0.0)
+
+
+def ds_residual_ext_plain(b, u_hi, u_lo, origin, n: int):
+    return _residual_ext_plain(b, (u_hi, u_lo), origin, n)
 
 
 def ts_residual_ext_plain(b, u_hi, u_mid, u_lo, origin, n: int):
-    precision = _precision()
-    nbr_h, c_h = _nbr_comp(u_hi)
-    nbr_m, c_m = _nbr_comp(u_mid)
-    r = precision._ts_cascade(b, u_hi, u_mid, nbr_h, c_h, nbr_m, c_m,
-                              _apply_a(u_lo))
-    R, C = b.shape
-    return torch.where(_masks(R, C, origin, n, b.device)[0], r, 0.0)
+    return _residual_ext_plain(b, (u_hi, u_mid, u_lo), origin, n)
 
 
 def _interleave(ee, oe, eo, oo, R: int, C: int):
@@ -135,11 +133,8 @@ def prolong_pair_ext_plain(ec_hi, ec_lo, origin, nf: int):
 def comp_add_ext_plain(comps, ys):
     """comps += each y in turn through ``precision.ds_add`` (a pair) or
     ``ts_add`` (a triple), written back into ``comps`` with ``copy_``."""
-    precision = _precision()
-    add = precision.ds_add if len(comps) == 2 else precision.ts_add
-    new = tuple(comps)
-    for y in ys:
-        new = add(*new, y)
+    new = list(comps)
+    _precision()._accumulate(new, ys)
     for c, v in zip(comps, new):
         c.copy_(v)
     return tuple(comps)

@@ -78,16 +78,6 @@ def _neighbor_sum_compensated(u):
     return s, c
 
 
-def _mask_nd(r, n):
-    if r.ndim == 3:
-        return ops3d.mask_interior3(r, n)
-    return ops.mask_interior(r, n)
-
-
-def _nbr_nd(u):
-    return ops3d.neighbor_sum3(u) if u.ndim == 3 else ops.neighbor_sum(u)
-
-
 def _diag_terms(u) -> list:
     """-(diag * u) as exact products: [-4u] in 2D, [-4u, -2u] in 3D (6u
     itself rounds; 4u and 2u are exponent shifts)."""
@@ -96,64 +86,53 @@ def _diag_terms(u) -> list:
     return [-4.0 * u]
 
 
-def _ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo):
-    """The ds-residual TwoSum cascade: r = b + nbr_hi - diag u_hi (the
-    large, cancelling terms, exactly), then the small corrections."""
-    s, e1 = _two_sum(b, nbr_hi)
-    errs = [e1]
-    for t in _diag_terms(u_hi):
-        s, e = _two_sum(s, t)
+def _cascade(b, parts, nbrs, a_lo):
+    """The compensated-residual TwoSum cascade of the iterate's leading
+    ``parts`` (hi, or hi and mid), ``nbrs`` their compensated neighbour
+    sums (nbr, c) and ``a_lo`` = A u_lo: r = b + each part's nbr - diag
+    part in turn (the large, cancelling terms, exactly), then the small
+    corrections (the errors, each c, -a_lo)."""
+    s, errs = b, []
+    for part, (nbr, _) in zip(parts, nbrs):
+        s, e = _two_sum(s, nbr)
         errs.append(e)
+        for t in _diag_terms(part):
+            s, e = _two_sum(s, t)
+            errs.append(e)
     cs = []
-    for t in errs + [nbr_c, -a_lo]:
+    for t in errs + [c for _, c in nbrs] + [-a_lo]:
         s, c = _two_sum(s, t)
         cs.append(c)
     tail = cs[-1]
     for c in cs[-2::-1]:
         tail = c + tail
     return s + tail
+
+
+def _plain_residual(b, parts, n: int):
+    """r = b - A(sum of ``parts``) by :func:`_cascade`, masked to the
+    interior; 2D or 3D by ``b.ndim``."""
+    lo = parts[-1]
+    if b.ndim == 3:
+        a_lo, mask = 6.0 * lo - ops3d.neighbor_sum3(lo), ops3d.mask_interior3
+    else:
+        a_lo, mask = 4.0 * lo - ops.neighbor_sum(lo), ops.mask_interior
+    nbrs = [_neighbor_sum_compensated(p) for p in parts[:-1]]
+    return mask(_cascade(b, parts[:-1], nbrs, a_lo), n)
 
 
 def ds_residual(b, u_hi, u_lo, n: int):
     """r = b - A(u_hi + u_lo) with ~eps^2 accuracy, masked to the interior
     (2D: the plain version of ``kernels.compres.ds_residual``); 2D or 3D
     by ``b.ndim``."""
-    nbr_hi, nbr_c = _neighbor_sum_compensated(u_hi)
-    a_lo = 2.0 * b.ndim * u_lo - _nbr_nd(u_lo)
-    return _mask_nd(_ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo), n)
-
-
-def _ts_cascade(b, u_hi, u_mid, nbr_h, c_h, nbr_m, c_m, a_l):
-    """The ts-residual TwoSum cascade (see :func:`_ds_cascade`)."""
-    s, e1 = _two_sum(b, nbr_h)
-    errs = [e1]
-    for t in _diag_terms(u_hi):
-        s, e = _two_sum(s, t)
-        errs.append(e)
-    s, e = _two_sum(s, nbr_m)
-    errs.append(e)
-    for t in _diag_terms(u_mid):
-        s, e = _two_sum(s, t)
-        errs.append(e)
-    cs = []
-    for t in errs + [c_h, c_m, -a_l]:
-        s, c = _two_sum(s, t)
-        cs.append(c)
-    tail = cs[-1]
-    for c in cs[-2::-1]:
-        tail = c + tail
-    return s + tail
+    return _plain_residual(b, (u_hi, u_lo), n)
 
 
 def ts_residual(b, u_hi, u_mid, u_lo, n: int):
     """r = b - A(u_hi + u_mid + u_lo) to ~eps^3, masked to the interior
     (2D: the plain version of ``kernels.compres.ts_residual``); 2D or 3D by
     ``b.ndim``."""
-    nbr_h, c_h = _neighbor_sum_compensated(u_hi)
-    nbr_m, c_m = _neighbor_sum_compensated(u_mid)
-    a_l = 2.0 * b.ndim * u_lo - _nbr_nd(u_lo)
-    r = _ts_cascade(b, u_hi, u_mid, nbr_h, c_h, nbr_m, c_m, a_l)
-    return _mask_nd(r, n)
+    return _plain_residual(b, (u_hi, u_mid, u_lo), n)
 
 
 # Nodes of one float64 temporary of :func:`ds_residual_var3_plain` (128
@@ -243,40 +222,29 @@ def _require_compensable(op, kind: str = "ds") -> None:
             f"refinement would correct toward another operator's solution")
 
 
-def _ds_residual_d(b, u_hi, u_lo, op, use_kernels):
-    """The compensated ds residual of the level operator ``op``: the 3D
-    flux stencil's in float64; the constant Laplacian's through the 2D
-    kernel when the grid is 2D and qualifies, through the 3D kernel when it
-    is 3D and qualifies (a 3D grid's last side never reaches the 2D
-    kernel), else in plain torch.  Any other operator raises."""
-    if isinstance(op, VarStencilOp3D):
+def _comp_residual(b, parts, op, use_kernels):
+    """The compensated residual b - A(sum of ``parts``) of the level
+    operator ``op``: ds for a pair, ts for a triple.  The 3D flux
+    stencil's (ds only) in float64; the constant Laplacian's through the
+    2D kernel when the grid is 2D and qualifies, through the 3D kernel
+    when it is 3D and qualifies (a 3D grid's last side never reaches the
+    2D kernel), else in plain torch.  Any other operator raises."""
+    ds = len(parts) == 2
+    if ds and isinstance(op, VarStencilOp3D):
         with tracing.span("residual", b, path="var3"):
-            return ds_residual_var3(op, b, u_hi, u_lo)
-    _require_compensable(op)
-    n = op.n
-    if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
-                                                         b.dtype):
+            return ds_residual_var3(op, b, *parts)
+    _require_compensable(op, "ds" if ds else "ts")
+    if b.ndim == 3:
+        kernel = compres.ds_residual3 if ds else compres.ts_residual3
+        fits = compres.supported3(b.shape, b.dtype)
+    else:
+        kernel = compres.ds_residual if ds else compres.ts_residual
+        fits = compres.supported(b.shape[-1], b.dtype)
+    if use_kernels and fits:
         with tracing.span("residual", b, path="kernel"):
-            return compres.ds_residual(b, u_hi, u_lo, n)
-    if use_kernels and b.ndim == 3 and compres.supported3(b.shape, b.dtype):
-        with tracing.span("residual", b, path="kernel"):
-            return compres.ds_residual3(b, u_hi, u_lo, n)
+            return kernel(b, *parts, op.n)
     with tracing.span("residual", b, path="plain"):
-        return ds_residual(b, u_hi, u_lo, n)
-
-
-def _ts_residual_d(b, u_hi, u_mid, u_lo, op, use_kernels):
-    _require_compensable(op, "ts")
-    n = op.n
-    if use_kernels and b.ndim == 2 and compres.supported(b.shape[-1],
-                                                         b.dtype):
-        with tracing.span("residual", b, path="kernel"):
-            return compres.ts_residual(b, u_hi, u_mid, u_lo, n)
-    if use_kernels and b.ndim == 3 and compres.supported3(b.shape, b.dtype):
-        with tracing.span("residual", b, path="kernel"):
-            return compres.ts_residual3(b, u_hi, u_mid, u_lo, n)
-    with tracing.span("residual", b, path="plain"):
-        return ts_residual(b, u_hi, u_mid, u_lo, n)
+        return (ds_residual if ds else ts_residual)(b, *parts, op.n)
 
 
 def prolong_comp(ec, nc: int, Sf: int):
@@ -389,17 +357,9 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
         p_lo = ops.prolong(ec_lo, opc.n, op.S) + p_err
     # accumulate (p_hi, p_lo) + e0 exactly, then post-smooth in delta form
     e_hi, e_lo = ds_add(p_hi, p_lo, e0)
-    d0 = _ds_residual_d(r, e_hi, e_lo, op, cfg.use_kernels)
+    d0 = _comp_residual(r, (e_hi, e_lo), op, cfg.use_kernels)
     delta = _smooth(op, torch.zeros_like(d0), d0, cfg, cfg.nu2)
     return ds_add(e_hi, e_lo, delta)
-
-
-def _ts_renorm(a, b, c):
-    """Renormalize three roughly-ordered components to a ts triple."""
-    s, t = _two_sum(b, c)
-    hi, t2 = _two_sum(a, s)
-    mid, lo = _quick_two_sum(t2, t)
-    return hi, mid, lo
 
 
 def ts_add(hi, mid, lo, y):
@@ -408,7 +368,10 @@ def ts_add(hi, mid, lo, y):
         s1, e1 = _two_sum(hi, y)
         s2, e2 = _two_sum(mid, e1)
         s3 = lo + e2
-        return _ts_renorm(s1, s2, s3)
+        # renormalise the three roughly-ordered sums to a ts triple
+        s, t = _two_sum(s2, s3)
+        hi, t2 = _two_sum(s1, s)
+        return (hi,) + _quick_two_sum(t2, t)
 
 
 class _RefinementLoop:
@@ -454,6 +417,53 @@ def _check_modes(tol, num_cycles) -> None:
             "num_cycles (fixed-count mode); got tol=None, num_cycles=None")
 
 
+def _accumulate(parts: list, ys) -> None:
+    """parts += each y of ``ys`` in turn through :func:`ds_add` (a pair) or
+    :func:`ts_add` (a triple), each in its own ``accumulate`` span, in
+    place in the list ``parts`` (``kernels.localref.comp_add_ext``'s
+    contract), so that no earlier sum stays alive."""
+    add = ds_add if len(parts) == 2 else ts_add
+    for y in ys:
+        parts[:] = add(*parts, y)
+
+
+def _refine(hier, cfg, b, nparts, ds_levels, tol, stall_factor, num_cycles,
+            max_iters, u0=None, u0_lo=None, r0_norm=None):
+    """The one loop of :func:`solve_refined_ds` and :func:`solve_refined_ts`,
+    on an iterate of ``nparts`` parts (2, a ds pair, or 3, a ts triple)
+    under one ``solve`` span: from zero, or from ``u0`` (+ ``u0_lo``) and
+    its residual; then, while the
+    :class:`_RefinementLoop` runs, one cycle on the defect
+    (:func:`cycle_ds` with ``ds_levels``, else the plain cycle), the
+    compensated accumulation of its correction, the compensated residual
+    and its norm.  Returns the parts + (hist, iterations, converged).  No
+    name outside ``parts`` holds a part: each sum is freed when the next
+    replaces it."""
+    _check_modes(tol, num_cycles)
+    op = hier.levels[0]
+    _require_compensable(op, "ds" if nparts == 2 else "ts")
+    with tracing.solve() as root:
+        if u0 is None:
+            parts, r = [_zeros(op, b) for _ in range(nparts)], b
+        else:
+            parts = [u0.to(b.dtype)]
+            parts.append(torch.zeros_like(parts[0]) if u0_lo is None
+                         else u0_lo.to(b.dtype))
+            r = _comp_residual(b, parts, op, cfg.use_kernels)
+        loop = _RefinementLoop(tracing.sync(ops.norm2(r), "norm"), tol,
+                               stall_factor, num_cycles, max_iters, r0_norm)
+        while loop.running():
+            with tracing.span("cycle", r):
+                e = (cycle_ds(hier, cfg, r, ds_levels=ds_levels)
+                     if ds_levels > 0
+                     else (cycle(hier, cfg, torch.zeros_like(r), r),))
+            _accumulate(parts, e)
+            r = _comp_residual(b, parts, op, cfg.use_kernels)
+            loop.record(tracing.sync(ops.norm2(r), "norm"))
+        root.set(iterations=loop.i)
+        return tuple(parts) + loop.outcome()
+
+
 def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
                      tol: Optional[float] = 1e-8, max_iters: int = 60,
                      stall_factor: float = 0.9,
@@ -469,30 +479,8 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
     finest operator is a constant 5- or 7-point Laplacian; any other
     raises ``NotImplementedError``.
     """
-    _check_modes(tol, num_cycles)
-    _require_compensable(hier.levels[0], "ts")
-    with tracing.solve() as root:
-        op = hier.levels[0]
-        u_hi = _zeros(op, b)
-        u_mid = torch.zeros_like(u_hi)
-        u_lo = torch.zeros_like(u_hi)
-        r = b
-        loop = _RefinementLoop(tracing.sync(ops.norm2(r), "norm"), tol,
-                               stall_factor, num_cycles, max_iters)
-        while loop.running():
-            if ds_levels > 0:
-                with tracing.span("cycle", r):
-                    e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
-                u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_hi)
-                u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e_lo)
-            else:
-                with tracing.span("cycle", r):
-                    e = cycle(hier, cfg, torch.zeros_like(r), r)
-                u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e)
-            r = _ts_residual_d(b, u_hi, u_mid, u_lo, op, cfg.use_kernels)
-            loop.record(tracing.sync(ops.norm2(r), "norm"))
-        root.set(iterations=loop.i)
-        return (u_hi, u_mid, u_lo) + loop.outcome()
+    return _refine(hier, cfg, b, 3, ds_levels, tol, stall_factor,
+                   num_cycles, max_iters)
 
 
 def solve_refined(hier: Hierarchy, cfg: MultigridConfig, b, *,
@@ -535,32 +523,5 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
     if inner_dtype is not None:
         raise NotImplementedError("inner_dtype (a narrow inner cycle) is not "
                                   "ported yet")
-    _check_modes(tol, num_cycles)
-    _require_compensable(hier.levels[0])
-    with tracing.solve() as root:
-        op = hier.levels[0]
-        if u0 is not None:
-            u_hi = u0.to(b.dtype)
-            u_lo = (u0_lo.to(b.dtype) if u0_lo is not None
-                    else torch.zeros_like(u_hi))
-            r = _ds_residual_d(b, u_hi, u_lo, op, cfg.use_kernels)
-        else:
-            u_hi = _zeros(op, b)
-            u_lo = torch.zeros_like(u_hi)
-            r = b
-        loop = _RefinementLoop(tracing.sync(ops.norm2(r), "norm"), tol,
-                               stall_factor, num_cycles, max_iters, r0_norm)
-        while loop.running():
-            if ds_levels > 0:
-                with tracing.span("cycle", r):
-                    e_hi, e_lo = cycle_ds(hier, cfg, r, ds_levels=ds_levels)
-                u_hi, u_lo = ds_add(u_hi, u_lo, e_hi)
-                u_hi, u_lo = ds_add(u_hi, u_lo, e_lo)
-            else:
-                with tracing.span("cycle", r):
-                    e = cycle(hier, cfg, torch.zeros_like(r), r)
-                u_hi, u_lo = ds_add(u_hi, u_lo, e)
-            r = _ds_residual_d(b, u_hi, u_lo, op, cfg.use_kernels)
-            loop.record(tracing.sync(ops.norm2(r), "norm"))
-        root.set(iterations=loop.i)
-        return (u_hi, u_lo) + loop.outcome()
+    return _refine(hier, cfg, b, 2, ds_levels, tol, stall_factor,
+                   num_cycles, max_iters, u0, u0_lo, r0_norm)
