@@ -1411,8 +1411,7 @@ def phase_slice3d():
     got = PATH_COUNTS["rbgs55-3d-7"]
     per = len(stencil.launch_plan(10, lib.stencil3d_max_steps, (1.0,)))
     want = expect(
-        smooth_restrict3=3 * len(transfer3d.split_plan(
-            10, 2, lib.window3_max_halo, (1.0,))),
+        smooth_restrict3=3 * len(transfer3d.k1_launches(lib, 10, (1.0,))),
         prolong_smooth_resnorm3=3 * len(transfer3d.split_plan(
             10, 1, lib.window3_max_halo, (1.0,))),
         rbgs_sweeps_residual3=9 * per, rbgs_sweeps3=9 * per)

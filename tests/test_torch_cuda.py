@@ -520,10 +520,11 @@ def test_k1_3_k2_3_deep_depths_split_bitwise(gen, sm, om, sweeps, stencil):
     assert torch.equal(kv, want)
     torch.testing.assert_close(knorm, pnorm, rtol=1e-5, atol=0)
     steps = 2 * sweeps if sm == "rbgs" else sweeps
-    halo, ws = _build.lib().window3_max_halo, (1.0,)
+    lib, ws = _build.lib(), (1.0,)
+    halo = lib.window3_max_halo
     counts = kernels.launch_counts()
-    assert counts["smooth_restrict3"] == len(T3.split_plan(steps, 2, halo,
-                                                           ws))
+    assert counts["smooth_restrict3"] == len(T3.k1_launches(lib, steps, ws,
+                                                            st))
     assert counts["prolong_smooth3"] == len(T3.split_plan(steps, 0, halo, ws))
     assert counts["prolong_smooth_resnorm3"] == len(
         T3.split_plan(steps, 1, halo, ws))
@@ -1360,6 +1361,7 @@ def test_zmarch_k1v3_bitwise_at_a_ragged_pair(gen, nplanes, sm, om, sweeps):
     (4-9 steps, RB-GS (5, 5) and (6, 6) split into launches, the last
     beginning at an even and an odd half-step), 3, 4 and 6 planes."""
     from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import transfer3d as T3
     from tpu_multigrid_torch.kernels import vartransfer3d as VT3
     shape, shape_c, n = ZMARCH_PAIR
     u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
@@ -1372,7 +1374,7 @@ def test_zmarch_k1v3_bitwise_at_a_ragged_pair(gen, nplanes, sm, om, sweeps):
     lib = _build.lib()
     steps = 2 * sweeps if sm == "rbgs" else sweeps
     ws = om if isinstance(om, tuple) else (om,)
-    plan = VT3.k1_plan(steps, ws, lib.zmarch3_max_halo, lib.window3_max_halo)
+    plan = T3.k1_plan(steps, ws, lib.zmarch3_max_halo, lib.window3_max_halo)
     assert kernels.launch_counts()["var_smooth_restrict3"] == len(plan)
 
 
@@ -1422,6 +1424,124 @@ def test_zmarch_k1v3_ext_at_four_origins(gen, nplanes, smoother, omega,
         ku, krc = VT3.var_smooth_restrict_ext3(*args)
         pu, prc = VT3.var_smooth_restrict_ext3_plain(*args)
         assert torch.equal(ku, pu) and torch.equal(krc, prc), origin
+
+
+# The 7-point K1_3 on the z march: the ragged pair, and the 513^3 finest
+# pair as the front door pads it.  Jacobi 1 and 2, Chebyshev 3, no steps,
+# RB-GS (1, 1) and (2, 2), and depths that split into launches: Chebyshev
+# 10 and RB-GS (6, 6) (10 and 12 steps).  K1_3-ext runs the same march:
+# test_dist3_kernels_match_plain_bitwise holds it (nplanes 0).
+K1_3_ZMARCH_PAIRS = [ZMARCH_PAIR, ((528, 528, 640), (272, 272, 384), 512)]
+K1_3_ZMARCH_SMOOTHERS = [("jacobi", 2.0 / 3.0, 1),
+                         ("jacobi", ops.chebyshev_omegas(2, 0.4), 2),
+                         ("jacobi", ops.chebyshev_omegas(3, 0.4), 3),
+                         ("jacobi", 2.0 / 3.0, 0), ("rbgs", 1.0, 1),
+                         ("rbgs", 1.0, 2),
+                         ("jacobi", ops.chebyshev_omegas(10, 0.4), 10),
+                         ("rbgs", 1.0, 6)]
+
+
+@pytest.mark.parametrize("shape,shape_c,n", K1_3_ZMARCH_PAIRS)
+@pytest.mark.parametrize("sm,om,sweeps", K1_3_ZMARCH_SMOOTHERS)
+def test_zmarch_k1_3_bitwise(gen, shape, shape_c, n, sm, om, sweeps):
+    """K1_3 on the 7-point stencil (u' and the whole coarse grid, its tail
+    included) bitwise against its plain version, in the launches of
+    ``transfer3d.k1_plan`` under the z march's halo limit."""
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    kernels.reset_launch_counts()
+    ku, krc = T3.smooth_restrict3(u, b, n, shape_c, sweeps, sm, om)
+    pu, prc = T3.smooth_restrict3_plain(u, b, n, shape_c, sweeps, sm, om)
+    assert torch.equal(ku, pu) and torch.equal(krc, prc)
+    lib = _build.lib()
+    steps = 2 * sweeps if sm == "rbgs" else sweeps
+    ws = om if isinstance(om, tuple) else (om,)
+    plan = T3.k1_plan(steps, ws, lib.zmarch3_max_halo, lib.window3_max_halo)
+    assert kernels.launch_counts()["smooth_restrict3"] == len(plan)
+
+
+@pytest.mark.parametrize("first", [1, 2, 3])
+@pytest.mark.parametrize("steps", [2, 3, 4])
+def test_zmarch_k1_3_rbgs_from_any_first_step(gen, first, steps):
+    """One 7-point K1_3 launch of RB-GS half-steps beginning at global
+    half-step ``first``, bitwise against the plain half-steps, residual and
+    restriction."""
+    from tpu_multigrid_torch.kernels import _build
+    from tpu_multigrid_torch.kernels import stencil3d as K3
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    shape, shape_c, n = ZMARCH_PAIR
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    out, rc = torch.empty_like(u), torch.empty(shape_c, device="cuda")
+    wt, taps = K3.rbgs_weights3(), T3.taps_array()
+    err = _build.lib().tmt_smooth_restrict3(
+        u.data_ptr(), b.data_ptr(), out.data_ptr(), rc.data_ptr(), *shape,
+        *shape_c, n, steps, first, 1, wt.ctypes.data, 1, taps.ctypes.data, 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "tmt_smooth_restrict3")
+    v = K3.smooth3_plain(u, b, n, steps, "rbgs", 1.0, first_step=first)
+    want_rc = T3.restrict3_plain(K3.residual3_plain(v, b, n), n, shape_c)
+    assert torch.equal(out, v) and torch.equal(rc, want_rc)
+
+
+def _load_devtrace():
+    """The benchmark's trace reader (h100bench/devtrace.py), by path."""
+    import importlib.util
+    import pathlib
+    import sys
+    path = pathlib.Path(__file__).resolve().parents[1] / "h100bench" / \
+        "devtrace.py"
+    spec = importlib.util.spec_from_file_location("devtrace", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules.setdefault("devtrace", mod)   # its dataclass looks it up
+    spec.loader.exec_module(mod)
+    return sys.modules["devtrace"]
+
+
+def test_zmarch_k1_3_keeps_its_trace_identifier(gen):
+    """Under torch.profiler, as the benchmark reads a trace
+    (``devtrace.base_name``): the 7-point K1_3 launch is
+    ``smooth_restrict3_kernel``, the z march's instance on ZConstOp3; the
+    19-point one stays the window's; K1v_3 is
+    ``zmarch_smooth_restrict3_kernel`` on ``VarOp3<``.
+    ``LAUNCHES["smooth_restrict3"]`` counts one a K1_3 launch."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_multigrid_torch.core.operators import Const19Op
+    from tpu_multigrid_torch.kernels import transfer3d as T3
+    from tpu_multigrid_torch.kernels import vartransfer3d as VT3
+    devtrace = _load_devtrace()
+    shape, shape_c, n = ZMARCH_PAIR
+    u, b = _interior3(shape, n, gen), _interior3(shape, n, gen)
+    coef = _planes3(3, shape, gen)
+    om = ops.chebyshev_omegas(3, 0.4)
+    calls = [lambda: T3.smooth_restrict3(u, b, n, shape_c, 3, "jacobi", om),
+             lambda: T3.smooth_restrict3(u, b, n, shape_c, 3, "jacobi", om,
+                                         Const19Op.STENCIL27),
+             lambda: VT3.var_smooth_restrict3(u, b, coef, n, shape_c, 3,
+                                              "jacobi", om)]
+    names = []
+    for call in calls:
+        call()                        # built and warm outside the trace
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        device, _ = devtrace.events(prof)
+        names.append([devtrace.short_name(name) for name, _, _ in device
+                      if "smooth_restrict3_kernel" in name])
+        counts = kernels.launch_counts()
+        want = 0 if call is calls[2] else 1
+        assert counts["smooth_restrict3"] == want, counts
+    k7, k19, kv = names
+    assert len(k7) == len(k19) == len(kv) == 1, names
+    assert devtrace.base_name(k7[0]) == "smooth_restrict3_kernel", k7
+    assert "zmarch::" in k7[0] and "ConstOp3" in k7[0], k7
+    assert devtrace.base_name(k19[0]) == "smooth_restrict3_kernel", k19
+    assert "zmarch" not in k19[0] and "ConstOp3<true>" in k19[0], k19
+    assert devtrace.base_name(kv[0]) == "zmarch_smooth_restrict3_kernel", kv
+    assert "VarOp3<" in kv[0], kv
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """The Python side of the marching kernels, on the CPU with the C queries
-stubbed: K1v_3's launch plan under the z march's halo limit
-(``vartransfer3d.k1_plan`` / ``_plan``), and the streaming smoother's
-launches under a changed ``tmt_stencil_max_steps`` (``stencil.launch_plan``
-and the sequence of C calls ``stencil._launch`` makes)."""
+stubbed: K1v_3's and the 7-point K1_3's launch plans under the z march's
+halo limit (``transfer3d.k1_plan``, ``vartransfer3d._plan``, the C calls
+``transfer3d.smooth_restrict3`` / ``smooth_restrict_ext3`` make), and the
+streaming smoother's launches under a changed ``tmt_stencil_max_steps``
+(``stencil.launch_plan`` and the sequence of C calls ``stencil._launch``
+makes)."""
 
 import types
 
@@ -30,7 +32,7 @@ def _halos(plan, extra):
 def test_k1_plan_equals_split_plan_at_equal_limits(steps, ws):
     """With both windows at 11 layers (the kernels' limits today) a K1v_3
     call splits exactly as K1_3's does."""
-    assert VT3.k1_plan(steps, ws, 11, 11) == T3.split_plan(steps, 2, 11, ws)
+    assert T3.k1_plan(steps, ws, 11, 11) == T3.split_plan(steps, 2, 11, ws)
 
 
 @pytest.mark.parametrize("k1_halo,k2_halo", [(6, 11), (11, 11), (14, 11),
@@ -42,7 +44,7 @@ def test_k1_plan_fits_each_launch_in_its_window(k1_halo, k2_halo, steps):
     one launch whenever steps + 2 fits the z march; the steps run in order
     with their weights rotated to each launch's first step."""
     ws = CHEB3
-    plan = VT3.k1_plan(steps, ws, k1_halo, k2_halo)
+    plan = T3.k1_plan(steps, ws, k1_halo, k2_halo)
     halos = _halos(plan, 2)
     assert halos[-1] <= k1_halo
     assert all(h <= k2_halo for h in halos[:-1])
@@ -60,8 +62,8 @@ def test_k1_plan_fits_each_launch_in_its_window(k1_halo, k2_halo, steps):
 def test_k1_plan_rbgs_5_5_splits_only_where_the_window_needs_it():
     """RB-GS (5, 5) (10 half-steps, a halo of 12): one launch once the z
     march holds 12 layers, two (6 + 4 steps) under today's 11."""
-    assert VT3.k1_plan(10, (1.0,), 12, 11) == [(0, 10, (1.0,))]
-    assert VT3.k1_plan(10, (1.0,), 11, 11) == [(0, 6, (1.0,)),
+    assert T3.k1_plan(10, (1.0,), 12, 11) == [(0, 10, (1.0,))]
+    assert T3.k1_plan(10, (1.0,), 11, 11) == [(0, 6, (1.0,)),
                                                (6, 4, (1.0,))]
 
 
@@ -88,6 +90,94 @@ def test_var_k1_entries_plan_with_the_zmarch_query(sweeps, k1_halo,
     _, plan2 = VT3._plan("var_prolong_smooth3", lib, "jacobi", 2.0 / 3.0,
                          sweeps, 1)
     assert plan2 == T3.split_plan(sweeps, 1, 11, (2.0 / 3.0,))
+
+
+class _FakeK1:
+    """Stands in for the bound library under K1_3's entries: the halo
+    limits, and each C call's (entry, steps, first step)."""
+
+    # The index of `steps` among each entry's arguments (`first` follows).
+    STEPS_AT = {"tmt_smooth_restrict3": 11, "tmt_prolong_smooth3": 13,
+                "tmt_smooth_restrict_ext3": 13,
+                "tmt_prolong_smooth_ext3": 15}
+
+    def __init__(self, zmarch3_max_halo, window3_max_halo):
+        self.zmarch3_max_halo = zmarch3_max_halo
+        self.window3_max_halo = window3_max_halo
+        self.calls = []
+
+    def __getattr__(self, entry):
+        at = self.STEPS_AT[entry]
+
+        def call(*args):
+            self.calls.append((entry, args[at], args[at + 1]))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_k1(monkeypatch):
+    """transfer3d's K1_3 entries on meta tensors (they take the card's
+    route), with the C library faked; ``fake_k1(zmarch, window)`` sets the
+    limits."""
+    from tpu_multigrid_torch.kernels import _build
+    lib = _FakeK1(11, 11)
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "check_inputs", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: _NullContext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+
+    def limits(zmarch, window):
+        lib.zmarch3_max_halo, lib.window3_max_halo = zmarch, window
+        lib.calls.clear()
+        return lib
+    return limits
+
+
+def _k1_calls(plan, leading, last):
+    """The C calls that run ``plan``: leading smoothing passes, then K1."""
+    return [(leading if i < len(plan) - 1 else last, k, first)
+            for i, (first, k, _) in enumerate(plan)]
+
+
+@pytest.mark.parametrize("zmarch,window", [(6, 11), (14, 11), (11, 11),
+                                           (11, 6)])
+@pytest.mark.parametrize("steps", [0, 3, 4, 9, 10, 12])
+@pytest.mark.parametrize("stencil", [None, "19"])
+def test_k1_3_entries_plan_the_7_point_form_on_the_zmarch(fake_k1, zmarch,
+                                                          window, steps,
+                                                          stencil):
+    """``smooth_restrict3`` plans its 7-point launches with
+    ``zmarch3_max_halo`` (``k1_plan``) and its static-taps launches with
+    ``window3_max_halo`` alone (``split_plan``); ``smooth_restrict_ext3``
+    (7-point only) as the 7-point form.  Each launch counts once."""
+    from tpu_multigrid_torch.core.operators import Const19Op
+    st = Const19Op.STENCIL27 if stencil else None
+    ws = ops.chebyshev_omegas(steps, 0.4) if steps else (2.0 / 3.0,)
+    om = ws if steps else ws[0]
+    lib = fake_k1(zmarch, window)
+    if st is None:
+        plan = T3.k1_plan(steps, ws, zmarch, window)
+    else:
+        plan = T3.split_plan(steps, 2, window, ws)
+    u = torch.empty((48, 48, 128), device="meta")
+    before = dict(T3.LAUNCHES)
+    T3.smooth_restrict3(u, u, 32, (32, 32, 128), steps, "jacobi", om, st)
+    assert lib.calls == _k1_calls(plan, "tmt_prolong_smooth3",
+                                  "tmt_smooth_restrict3")
+    assert (T3.LAUNCHES["smooth_restrict3"]
+            - before["smooth_restrict3"]) == len(plan)
+    if st is not None or steps + 2 > 16:
+        return
+    lib.calls.clear()
+    ext = torch.empty((80, 80, 128), device="meta")
+    T3.smooth_restrict_ext3(ext, ext, (-16, -16), 64, (56, 56, 128), steps,
+                            "jacobi", om)
+    assert lib.calls == _k1_calls(plan, "tmt_prolong_smooth_ext3",
+                                  "tmt_smooth_restrict_ext3")
+    assert (T3.LAUNCHES["smooth_restrict_ext3"]
+            - before["smooth_restrict_ext3"]) == len(plan)
 
 
 @pytest.mark.parametrize("chunk", [4, 16, 24, 32])

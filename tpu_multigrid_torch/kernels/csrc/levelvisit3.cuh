@@ -1,7 +1,8 @@
 // The two kernels of a 3D level visit on the window of window3.cuh, generic
-// in the operator `Op` (window3.cuh's ConstOp3 for K1_3/K2_3 in
-// transfer3d.cu, fas3d.cu's FAS operators for K1f_3/K2f_3, vartransfer3d.cu's
-// VarOp3 for K2v_3; K1v_3 runs on zmarch3.cuh's z march instead):
+// in the operator `Op` (window3.cuh's ConstOp3 for K2_3 and the static-taps
+// K1_3 in transfer3d.cu, fas3d.cu's FAS operators for K1f_3/K2f_3,
+// vartransfer3d.cu's VarOp3 for K2v_3; K1v_3 and the 7-point K1_3 run on
+// zmarch3.cuh's z march instead):
 //
 //   K1: `steps` smoothing steps, the residual r = b - A u', and the full-
 //       weighting restriction R = P^T / 2 of r, masked to the coarse

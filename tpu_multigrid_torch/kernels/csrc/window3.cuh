@@ -1,6 +1,7 @@
 // Shared-memory window machinery of the 3D kernels (stencil3d.cu, and
 // through levelvisit3.cuh transfer3d.cu, fas3d.cu and vartransfer3d.cu's
-// K2v_3; K1v_3 marches through z instead, zmarch3.cuh): a block loads
+// K2v_3; K1v_3 and the 7-point K1_3 march through z instead, zmarch3.cuh,
+// on the Grid3 and masks here): a block loads
 // a fixed kW3yz x kW3yz x kW3x window (z, y, x) of the grid into shared
 // memory, runs its smoothing steps there and writes the tile that lies
 // `halo` cells inside the window's faces (ghost-zone temporal blocking:

@@ -1,12 +1,14 @@
 // The z-marching (2.5D) form of a 3D level visit's first kernel: `steps`
 // smoothing steps, the residual r = b - A u', and its full-weighting
 // restriction R = P^T / 2 masked to the coarse interior, in one launch,
-// generic in the operator `Op` (vartransfer3d.cu's VarOp3 is its one user:
-// K1v_3 and K1v_3-ext).  It computes what levelvisit3.cuh's K1 computes,
-// node for node in the same order; only the schedule differs.
+// generic in the operator `Op`: vartransfer3d.cu's VarOp3 (K1v_3 and
+// K1v_3-ext) and transfer3d.cu's ZConstOp3, the 7-point stencil (K1_3 and
+// K1_3-ext).  It computes what levelvisit3.cuh's K1 computes, node for node
+// in the same order; only the schedule differs.
 //
-// What bounds it: device-memory traffic, ~6-9 passes of the fine cube (u,
-// b, 3-6 coefficient planes, u'), against ~25 flops per node and step.
+// What bounds it: device-memory traffic, ~3 passes of the fine cube (u, b,
+// u') for the 7-point stencil and ~6-9 with VarOp3's 3-6 coefficient
+// planes, against ~10-25 flops per node and step.
 // window3.cuh's fixed 24^2 x 32 window held a tile of 14^2 x 22 at
 // Chebyshev 3 (4.3x the loads and node updates of the tile), ran every step
 // over the whole window with a barrier each, and its three windows took
@@ -29,10 +31,11 @@
 //   plane for the x and y neighbours of the next step.  Step s runs only on
 //   the window rows it still holds valid ([s, kZY - s)), so each node is
 //   updated once per step plus the xy halo, with one barrier per plane.
-// * Coefficients from L1.  A step reads a live node's couplings (the minus
-//   ones from the node one back) through the read-only path and inverts
-//   its diagonal, as the window did; the planes of a block's segment in
-//   flight stay in L1 between the steps that read them.  Holding them in
+// * Coefficients from L1 (VarOp3; the 7-point stencil has none).  A step
+//   reads a live node's couplings (the minus ones from the node one back)
+//   through the read-only path and inverts its diagonal, as the window
+//   did; the planes of a block's segment in flight stay in L1 between the
+//   steps that read them.  Holding them in
 //   a per-thread register queue instead (read once per node) took 128
 //   registers at 3 steps and spilled: on a 32 x 32 window 9.7 ms against
 //   7.7 with two blocks of 64-register threads per SM (PERF.md, PR 13).
@@ -53,7 +56,10 @@
 //
 // The operator provides `Coef couplings(gz, gy, gx)` (the couplings of a live
 // node at array indices gz, gy, gx) and jacobi_n / gs_n / residual_n on a
-// ZNbrs neighbourhood, in the plain versions' order.
+// ZNbrs neighbourhood, in the plain versions' order.  The march is the
+// device function zmarch_smooth_restrict3; the __global__ that calls it
+// names the launch in a trace: zmarch_smooth_restrict3_kernel here,
+// transfer3d.cu's zmarch::smooth_restrict3_kernel for K1_3.
 
 #pragma once
 
@@ -95,14 +101,17 @@ __host__ __device__ constexpr int zmarch_floats(int steps) {
   return (4 + (steps + 3) + 2 * steps + 4) * zwidth(steps) * kZY;
 }
 
+// The threads of a z-march block: two warps a row of a wide window.
+constexpr int kZThreads = 2 * kZX * kZThreadsY;
+
+// The march of one block, for a __global__ of launch bounds (kZThreads, 1)
+// to call with its own parameters (taken by value, as the kernel takes
+// them, so that an instance compiles as the kernel's body did).
 template <typename Op, int STEPS>
-__global__ void __launch_bounds__(2 * kZX * kZThreadsY, 1)
-zmarch_smooth_restrict3_kernel(const float* __restrict__ u,
-                               const float* __restrict__ b,
-                               float* __restrict__ u_out,
-                               float* __restrict__ rc, Grid3 g, Grid3 gc,
-                               int cz, int first_step, int rbgs, ZWeights wt,
-                               Op op) {
+__device__ __forceinline__ void zmarch_smooth_restrict3(
+    const float* __restrict__ u, const float* __restrict__ b,
+    float* __restrict__ u_out, float* __restrict__ rc, Grid3 g, Grid3 gc,
+    int cz, int first_step, int rbgs, ZWeights wt, Op op) {
   constexpr int H = STEPS + 2;
   constexpr int WX = zwidth(STEPS);
   constexpr int PL = WX * kZY;                // one plane of the window
@@ -323,6 +332,18 @@ zmarch_smooth_restrict3_kernel(const float* __restrict__ u,
   }
 }
 
+template <typename Op, int STEPS>
+__global__ void __launch_bounds__(kZThreads, 1)
+zmarch_smooth_restrict3_kernel(const float* __restrict__ u,
+                               const float* __restrict__ b,
+                               float* __restrict__ u_out,
+                               float* __restrict__ rc, Grid3 g, Grid3 gc,
+                               int cz, int first_step, int rbgs, ZWeights wt,
+                               Op op) {
+  zmarch_smooth_restrict3<Op, STEPS>(u, b, u_out, rc, g, gc, cz, first_step,
+                                     rbgs, wt, op);
+}
+
 template <typename Op>
 using ZKernel = void (*)(const float*, const float*, float*, float*, Grid3,
                          Grid3, int, int, int, ZWeights, Op);
@@ -353,14 +374,13 @@ inline int zmarch_segment(const Grid3& g, int halo) {
 // on the grids g / gc.  weights: host [c1[0..count), c2[0..count)], local
 // step s taking entry s % count.  The grid covers the coarse array, so
 // that the coarse tail past S/2, or a block's coarse frame, is zeroed too.
+// kernel_of(steps) picks the __global__ (one family of them per Op).
 template <typename Op>
-cudaError_t launch_zmarch_smooth_restrict3(const float* u, const float* b,
-                                           float* u_out, float* rc,
-                                           const Grid3& g, const Grid3& gc,
-                                           int steps, int first_step,
-                                           int rbgs, const float* weights,
-                                           int count, const Op& op,
-                                           cudaStream_t st) {
+cudaError_t launch_zmarch_smooth_restrict3(
+    const float* u, const float* b, float* u_out, float* rc, const Grid3& g,
+    const Grid3& gc, int steps, int first_step, int rbgs,
+    const float* weights, int count, const Op& op, cudaStream_t st,
+    ZKernel<Op> (*kernel_of)(int) = zmarch_kernel<Op, kZMaxSteps>) {
   static int configured[kZMaxSteps + 1][kMaxDevices] = {};
   if (steps < 0 || steps > kZMaxSteps || first_step < 0 || count < 1 ||
       count > kMaxWeights) {
@@ -371,7 +391,7 @@ cudaError_t launch_zmarch_smooth_restrict3(const float* u, const float* b,
     wt.c1[j] = weights[j % count];
     wt.c2[j] = weights[count + j % count];
   }
-  const ZKernel<Op> kernel = zmarch_kernel<Op, kZMaxSteps>(steps);
+  const ZKernel<Op> kernel = kernel_of(steps);
   const int bytes = zmarch_floats(steps) * static_cast<int>(sizeof(float));
   cudaError_t err = allow_smem(kernel, bytes, configured[steps]);
   if (err != cudaSuccess) return err;

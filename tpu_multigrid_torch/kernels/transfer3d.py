@@ -14,12 +14,15 @@ _smooth_restrict3`` and ``::_prolong_smooth3``.  Each entry runs its plain
 torch version (``*_plain``, in the Pallas kernels' order: the restriction
 blurs x, then y, then z; the prolongation averages x, then y, then z) on
 CPU tensors and launches its CUDA kernel on CUDA tensors; on a CUDA tensor
-it never falls back.  A depth whose halo does not fit in the 3D window is
-split into launches (:func:`split_plan`): K1_3 runs its leading steps as
-smoothing passes alone and its last ones fused with the residual and the
-restriction, K2_3 its prolongation with the first steps and the rest as
-smoothing passes, the resnorm fused into the last.  ``LAUNCHES`` counts
-kernel launches per entry, each launch of a split call included.
+it never falls back.  K1_3 on the 7-point stencil runs on the z march of
+``csrc/zmarch3.cuh`` (as K1v_3 does), on static weights on the 3D window;
+K2_3 runs on the window.  A depth whose halo does not fit in a launch is
+split into launches (:func:`k1_launches`, :func:`split_plan`): K1_3 runs
+its leading steps as smoothing passes alone (K2_3 launches with no
+correction) and its last ones fused with the residual and the restriction,
+K2_3 its prolongation with the first steps and the rest as smoothing
+passes, the resnorm fused into the last.  ``LAUNCHES`` counts kernel
+launches per entry, each launch of a split call included.
 
 The same two kernels run on a ghost-extended block of a decomposed grid
 (the distributed tier, ``dist.pallas_cycle3``): K1_3-ext,
@@ -185,6 +188,27 @@ def split_plan(steps: int, extra: int, limit: int, ws: tuple) -> list:
     return plan
 
 
+def k1_plan(steps: int, ws: tuple, k1_halo: int, k2_halo: int) -> list:
+    """The launches of a z-march K1 call (K1_3 on the 7-point stencil,
+    K1v_3) of ``steps`` steps: one when its halo (steps + 2) fits the z
+    march's window (``k1_halo`` layers), else :func:`split_plan`'s under the
+    smaller limit, since the leading launches are K2 passes on the 3D
+    window (``k2_halo``)."""
+    if steps + 2 <= k1_halo:
+        return split_plan(steps, 2, k1_halo, ws)
+    return split_plan(steps, 2, min(k1_halo, k2_halo), ws)
+
+
+def k1_launches(lib, steps: int, ws: tuple, stencil=None) -> list:
+    """A K1 call's launch plan under the library's limits: the last launch
+    on the z march (K1_3 on the 7-point stencil, K1v_3: :func:`k1_plan`
+    with ``zmarch3_max_halo``), or, for K1_3 on static weights, on the 3D
+    window (``window3_max_halo``)."""
+    if stencil is None:
+        return k1_plan(steps, ws, lib.zmarch3_max_halo, lib.window3_max_halo)
+    return split_plan(steps, 2, lib.window3_max_halo, ws)
+
+
 def launch_args(entry, smoother, omega, sweeps, stencil):
     """(steps, rbgs flag, per-step weights, taps) for a C entry."""
     steps = 2 * sweeps if smoother == "rbgs" else sweeps
@@ -238,7 +262,7 @@ def smooth_restrict3(u, b, n: int, shape_c, sweeps: int,
     lib = _build.lib()
     steps, rbgs, ws, taps = launch_args("smooth_restrict3", smoother, omega,
                                          sweeps, stencil)
-    plan = split_plan(steps, 2, lib.window3_max_halo, ws)
+    plan = k1_launches(lib, steps, ws, stencil)
     rc = torch.empty(shape_c, dtype=u.dtype, device=u.device)
 
     def launch(i, src, out, first, k, launch_ws, stream):
@@ -426,7 +450,7 @@ def smooth_restrict_ext3(u, b, origin, n: int, shape_c, sweeps: int,
     _build.check_inputs(entry, (u, b), (shape, shape))
     lib = _build.lib()
     _, rbgs, ws, _ = launch_args(entry, smoother, omega, sweeps, None)
-    plan = split_plan(steps, 2, lib.window3_max_halo, ws)
+    plan = k1_launches(lib, steps, ws)
     rc = torch.empty(shape_c, dtype=u.dtype, device=u.device)
     geo = ext_args(shape, shape_c[2], n, origin, ghost)
 

@@ -16,10 +16,10 @@ its reaction plane c2, or 6 directional planes [cp_z, cp_y, cp_x, cm_z,
 cm_y, cm_x] of a variable-wind ``Directional7Op``.  Each entry runs its
 plain torch version (``*_plain``, in the Pallas kernels' order) on CPU
 tensors and launches its CUDA kernel on CUDA tensors; on a CUDA tensor it
-never falls back.  K1v_3 runs on a z-marching window of its own
-(``csrc/zmarch3.cuh``), K2v_3 on the 3D window of K1_3 / K2_3.  A depth
+never falls back.  K1v_3 runs on the z march of the 7-point K1_3
+(``csrc/zmarch3.cuh``), K2v_3 on the 3D window of K2_3.  A depth
 whose halo does not fit in a launch is split into launches as
-``kernels.transfer3d`` splits K1_3 / K2_3 (:func:`k1_plan`).
+``kernels.transfer3d`` splits K1_3 / K2_3 (``transfer3d.k1_launches``).
 ``LAUNCHES`` counts kernel launches per entry, each launch of a split call
 included.
 
@@ -51,10 +51,10 @@ import torch
 from ..core import ops, ops3d
 from . import _build
 from .stencil3d import masks3, shifted3
-from .transfer3d import (check_ext3, ext_args, launch_args, owned_sum_sq3,
-                         prolong3_plain, prolong_ext3_plain, restrict3_plain,
-                         restrict_ext3_plain, run_launches, split_plan,
-                         supported_local3)
+from .transfer3d import (check_ext3, ext_args, k1_launches, launch_args,
+                         owned_sum_sq3, prolong3_plain, prolong_ext3_plain,
+                         restrict3_plain, restrict_ext3_plain, run_launches,
+                         split_plan, supported_local3)
 
 LAUNCHES = {"var_smooth_restrict3": 0, "var_prolong_smooth3": 0,
             "var_prolong_smooth_resnorm3": 0, "var_smooth_restrict_ext3": 0,
@@ -213,24 +213,13 @@ def _check(entry, u, coef, smoother, box=None, cbox=None) -> None:
                          f" coefficient stack, got {tuple(coef.shape)}")
 
 
-def k1_plan(steps: int, ws: tuple, k1_halo: int, k2_halo: int) -> list:
-    """The launches of a K1v_3 call of ``steps`` steps: one when its halo
-    (steps + 2) fits K1v_3's z-march window (``k1_halo`` layers), else
-    :func:`split_plan`'s under the smaller limit, since the leading
-    launches are K2v_3 passes on the 3D window (``k2_halo``)."""
-    if steps + 2 <= k1_halo:
-        return split_plan(steps, 2, k1_halo, ws)
-    return split_plan(steps, 2, min(k1_halo, k2_halo), ws)
-
-
 def _plan(entry, lib, smoother, omega, sweeps, extra):
     """(rbgs flag, launch plan) of a C entry (RB-GS takes no weights): a
     K1v_3 plan for ``extra`` = 2 (the residual and the blur), a K2v_3 plan
     on the 3D window otherwise."""
     steps, rbgs, ws, _ = launch_args(entry, smoother, omega, sweeps, None)
     if extra == 2:
-        return rbgs, k1_plan(steps, ws, lib.zmarch3_max_halo,
-                             lib.window3_max_halo)
+        return rbgs, k1_launches(lib, steps, ws)
     return rbgs, split_plan(steps, extra, lib.window3_max_halo, ws)
 
 
