@@ -1765,3 +1765,72 @@ def test_var_residual_dispatch_and_launch_counts(gen):
     with pytest.raises(ValueError):     # not contiguous
         compres.ds_residual_var3(op, b, u_hi.transpose(0, 1), u_lo)
     assert kernels.launch_counts()["ds_residual_var3"] == 3
+
+
+def test_bratu3d_cell_kernel_route_matches_the_plain_route(gen):
+    """The ``bratu3d-513.fas-vcycles-6`` cell's solve, 6 FAS V-cycles of
+    the 513^3 Bratu problem at lam = 6 with the door's schedule from a
+    seeded forcing: the kernel route (K1f_3 / K2f_3 on the three fused
+    pairs, 36 launches) against the plain route on the same (528, 528, 640)
+    layout, to float32 rounding."""
+    from tpu_multigrid_torch.cycles import fas
+    from tpu_multigrid_torch.core import ops3d
+    from tpu_multigrid_torch.problems.bratu import Bratu3DProblem
+    cfg = tmg.MultigridConfig(finest_level=9, coarsest_level=3,
+                              use_kernels=True)
+    prob = Bratu3DProblem(cfg, lam=6.0, device="cuda", align=16,
+                          min_pad_level=0, lane_align=128)
+    hier = prob.hierarchy
+    op = hier.levels[0]
+    assert op.grid_shape == (528, 528, 640)
+    f = torch.randn(op.grid_shape, generator=gen, device="cuda")
+    b = ops3d.mask_interior3(f * (1.0 / op.n) ** 2, op.n)
+    kernels.reset_launch_counts()
+    got = fas.fas_solve_fixed(hier, cfg, b, 6)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "fas_smooth_restrict3": 18, "fas_prolong_smooth3": 12,
+        "fas_prolong_smooth_resnorm3": 6}
+    plain = fas.fas_solve_fixed(hier, dataclasses.replace(
+        cfg, use_kernels=False), b, 6)
+    gap = (got.u - plain.u).abs().max() / plain.u.abs().max()
+    assert float(gap) < 1e-5
+    hk, hp = got.res_history, plain.res_history
+    assert torch.allclose(hk[:4], hp[:4], rtol=1e-3)
+    assert float(hk[-1]) < 0.05 * float(hk[0])
+
+
+def test_fmg_replays_its_captured_pass_bitwise(gen):
+    """``cycles.fmg`` on one hierarchy: the first call issues the pass and
+    captures nothing, the second captures it as a CUDA graph and replays
+    it, later calls replay it; every answer is bitwise the issued pass's,
+    every call counts one pass's launches, and a replayed answer is a copy
+    the next replay leaves alone."""
+    from tpu_multigrid_torch import cycles
+    cfg = tmg.MultigridConfig(finest_level=11, coarsest_level=5, nu1=3,
+                              nu2=2, smoother="chebyshev", use_kernels=True)
+    hier = tmg.PoissonProblem(cfg, device="cuda", align=256,
+                              min_pad_level=0).hierarchy
+    op = hier.levels[0]
+    bs = [_interior(op.S, op.n, gen) for _ in range(4)]
+    want, counts = [], []
+    for b in bs:
+        kernels.reset_launch_counts()
+        want.append(cycles._fmg(hier, cfg, b, None))
+        counts.append(kernels.launch_counts())
+    for i, (b, w, c) in enumerate(zip(bs, want, counts)):
+        kernels.reset_launch_counts()
+        got = cycles.fmg(hier, cfg, b)
+        assert kernels.launch_counts() == c
+        assert torch.equal(got, w)
+        (graph,) = cycles._FMG_GRAPHS[hier].values()
+        assert (graph is None) == (i == 0)
+    held = cycles.fmg(hier, cfg, bs[0])
+    cycles.fmg(hier, cfg, bs[1])
+    assert torch.equal(held, want[0])
+    # The refined solve from the replayed start: the issued start's.
+    u_hi, u_lo, _, iters, ok = precision.solve_refined_ds(
+        hier, cfg, bs[2], tol=1e-7, u0=cycles.fmg(hier, cfg, bs[2]))
+    r_hi, r_lo, _, r_iters, _ = precision.solve_refined_ds(
+        hier, cfg, bs[2], tol=1e-7, u0=want[2])
+    assert ok and iters == r_iters
+    assert torch.equal(u_hi, r_hi) and torch.equal(u_lo, r_lo)

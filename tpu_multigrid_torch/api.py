@@ -20,6 +20,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from . import tracing
 from .config import MultigridConfig, default_device
 from .core.nonlinear import CARRIED, BratuNonlinearity, kernel_selector
 from .cycles import SolveResult, fmg, solve_fixed, solve_until_tol
@@ -204,11 +205,15 @@ def _solve_periodic(config, forcing, boundary, refined, order, tol,
             hier, config, config.dtype) == 0:
         return _run(problem, config, tol, max_cycles, num_cycles, use_fmg)
     b = problem.rhs()
-    u0 = fmg(hier, config, b) if use_fmg else None
-    if num_cycles is not None:
-        return solve_fixed_periodic(hier, config, b, num_cycles, u0=u0)
-    return solve_until_tol_periodic(hier, config, b, tol=tol,
-                                    max_cycles=max_cycles, u0=u0)
+    with tracing.solve() as root:
+        u0 = fmg(hier, config, b) if use_fmg else None
+        if num_cycles is not None:
+            res = solve_fixed_periodic(hier, config, b, num_cycles, u0=u0)
+        else:
+            res = solve_until_tol_periodic(hier, config, b, tol=tol,
+                                           max_cycles=max_cycles, u0=u0)
+        root.set(iterations=res.iterations)
+    return res
 
 
 def solve_diffusion(
@@ -560,16 +565,19 @@ def _run(problem, config, tol, max_cycles, num_cycles, use_fmg,
         b = b - op0.apply(lift)
     if tol is None and num_cycles is None:
         raise ValueError("need either tol or num_cycles (both are None)")
-    u0 = fmg(hier, config, b) if use_fmg else None
-    if refined:
-        from .precision import solve_refined
-        res = solve_refined(hier, config, b, tol=tol, max_iters=max_cycles,
-                            num_cycles=num_cycles, u0=u0)
-    elif num_cycles is not None:
-        res = solve_fixed(hier, config, b, num_cycles, u0=u0)
-    else:
-        res = solve_until_tol(hier, config, b, tol=tol,
-                              max_cycles=max_cycles, u0=u0)
+    with tracing.solve() as root:
+        u0 = fmg(hier, config, b) if use_fmg else None
+        if refined:
+            from .precision import solve_refined
+            res = solve_refined(hier, config, b, tol=tol,
+                                max_iters=max_cycles, num_cycles=num_cycles,
+                                u0=u0)
+        elif num_cycles is not None:
+            res = solve_fixed(hier, config, b, num_cycles, u0=u0)
+        else:
+            res = solve_until_tol(hier, config, b, tol=tol,
+                                  max_cycles=max_cycles, u0=u0)
+        root.set(iterations=res.iterations)
     if lift is not None:
         res = dataclasses.replace(res, u=res.u + lift)
     return res
@@ -595,11 +603,15 @@ def _run_fas(problem, config: MultigridConfig, tol, max_cycles, num_cycles,
             stacklevel=3)
     hier = problem.hierarchy
     bs = problem.rhs_all_levels() if use_fmg else [problem.rhs()]
-    u0 = fmg_fas(hier, config, bs) if use_fmg else None
-    if num_cycles is not None:
-        return fas_solve_fixed(hier, config, bs[0], num_cycles, u0=u0)
-    return fas_solve_until_tol(hier, config, bs[0], tol=tol,
-                               max_cycles=max_cycles, u0=u0)
+    with tracing.solve() as root:
+        u0 = fmg_fas(hier, config, bs) if use_fmg else None
+        if num_cycles is not None:
+            res = fas_solve_fixed(hier, config, bs[0], num_cycles, u0=u0)
+        else:
+            res = fas_solve_until_tol(hier, config, bs[0], tol=tol,
+                                      max_cycles=max_cycles, u0=u0)
+        root.set(iterations=res.iterations)
+    return res
 
 
 def _fas_config(config: Optional[MultigridConfig], finest_level: int,

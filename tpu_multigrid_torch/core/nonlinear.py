@@ -184,7 +184,10 @@ class PointwiseNonlinearOp:
     def coarse_newton(self, u, b, steps: int = 3):
         """Exact-Jacobian Newton at the coarsest level: J = A + h²φ′(u),
         dense, from the precomputed interior A, solved with
-        ``torch.linalg.solve``."""
+        ``torch.linalg.solve_ex``: ``solve``'s check of the factorisation
+        would make the host wait for the card at every step, three times a
+        cycle.  A singular J gives non-finite values, as ``jnp.linalg.solve``
+        does in the JAX package, and the drivers' norms carry them."""
         if self.a_dense is None:
             raise ValueError("coarse_newton needs a_dense (coarsest level)")
         n = self.n
@@ -198,7 +201,7 @@ class PointwiseNonlinearOp:
             rv = self.residual(v, b)[inter].reshape(-1)
             dd = (h2 * self.dphi(v).to(v.dtype))[inter].reshape(-1)
             J = A + torch.diag(dd)
-            ev = torch.linalg.solve(J, rv)
+            ev = torch.linalg.solve_ex(J, rv)[0]
             v = v.clone()
             v[inter] += ev.reshape(eshape)
         return v

@@ -30,12 +30,13 @@ tier is ``cycles.periodic_fused``.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import kernels, tracing
 from ..config import MultigridConfig
 from ..core import ops, ops3d
 from ..core.grids import Hierarchy, coarse_solve
@@ -512,7 +513,77 @@ def fmg_rhs_hierarchy(hier: Hierarchy, cfg: MultigridConfig, b_fine,
 
 def fmg(hier: Hierarchy, cfg: MultigridConfig, b_fine,
         b_levels: Optional[Sequence] = None):
-    """Full multigrid: coarsest solve, then prolong + nu0 cycles per level."""
+    """Full multigrid: coarsest solve, then prolong + nu0 cycles per level,
+    in an ``fmg`` span (no ``solve`` root: it starts another driver).
+
+    On the kernel route on the card, with the right-hand sides restricted
+    from ``b_fine``, a hierarchy that runs the pass again is reused: the
+    first call on one hierarchy, schedule and grid runs the pass as issued,
+    the second captures it as a CUDA graph (:class:`_FmgGraph`), and that
+    call and every later one replay it.  The pass is a few hundred launches
+    on levels so small that the card would otherwise wait for the host to
+    issue them; a hierarchy used once (a front door's) captures nothing."""
+    with tracing.span("fmg", b_fine):
+        if not _fmg_graphable(hier, cfg, b_fine):
+            return _fmg(hier, cfg, b_fine, b_levels)
+        graphs = _FMG_GRAPHS.setdefault(hier, {})
+        key = (cfg, tuple(b_fine.shape), b_fine.dtype, b_fine.device)
+        if key not in graphs:
+            graphs[key] = None
+            return _fmg(hier, cfg, b_fine, None)
+        if graphs[key] is None:
+            graphs[key] = _FmgGraph(hier, cfg, b_fine)
+        return graphs[key](b_fine)
+
+
+# The FMG passes captured on each hierarchy: key -> _FmgGraph, or None
+# once the pass has run as issued.
+_FMG_GRAPHS = weakref.WeakKeyDictionary()
+
+
+def _fmg_graphable(hier: Hierarchy, cfg: MultigridConfig, b_fine) -> bool:
+    """Whether the FMG pass may run as a CUDA graph: CUDA tensors, the
+    kernel route, right-hand sides restricted from the fine one, and levels
+    that transfer by the configured operators (not a torus's own pair)."""
+    return (b_fine.is_cuda and cfg.use_kernels and cfg.fmg_rhs == "restrict"
+            and not any(hasattr(op, "restrict_into") for op in hier.levels))
+
+
+class _FmgGraph:
+    """One FMG pass captured as a CUDA graph, its input and output buffers
+    and the kernel launches it makes.  Capturing calls the kernel wrappers,
+    which count launches that do not run: the counts are taken back, and
+    each replay adds them.  A replay returns a copy of the output, so that
+    the next one does not overwrite what a caller holds."""
+
+    def __init__(self, hier: Hierarchy, cfg: MultigridConfig, b_fine):
+        self.b = b_fine.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_counts()
+        with torch.cuda.device(b_fine.device):
+            with torch.cuda.graph(self.graph):
+                self.u = _fmg(hier, cfg, self.b, None)
+        after = kernels.launch_counts()
+        self.launches = {k: v - before[k] for k, v in after.items()
+                         if v != before[k]}
+        self._count(-1)
+
+    def __call__(self, b_fine):
+        self.b.copy_(b_fine)
+        self.graph.replay()
+        self._count(1)
+        return self.u.clone()
+
+    def _count(self, sign: int) -> None:
+        """Add ``sign`` times the pass's launches to the wrappers' counts."""
+        for m in kernels._MODULES:
+            for name in m.LAUNCHES:
+                m.LAUNCHES[name] += sign * self.launches.get(name, 0)
+
+
+def _fmg(hier: Hierarchy, cfg: MultigridConfig, b_fine,
+         b_levels: Optional[Sequence]):
+    """The FMG pass as issued, launch by launch."""
     bs = fmg_rhs_hierarchy(hier, cfg, b_fine, b_levels)
     kc = hier.num_levels - 1
     u = _zeros(hier.levels[kc], b_fine)

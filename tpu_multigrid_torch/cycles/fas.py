@@ -15,6 +15,11 @@ half in K1f and its upward half in K2f (``kernels.fas`` in 2D,
 ``kernels.fas3d`` in 3D); the other pairs run the operators' plain torch
 methods.  The until-tol driver takes its decisions in float32, as the JAX
 driver does.
+
+The drivers record ``tracing`` spans as the linear ones do: a ``solve``
+root (also around :func:`fmg_fas` called alone), a ``cycle`` for each
+finest-level cycle, a ``coarse`` around each coarsest-level solve, an
+``fmg`` around FMG-FAS, and their blocking reads through ``tracing.sync``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import MultigridConfig
 from ..core import ops, ops3d
 from ..core.grids import Hierarchy
@@ -131,11 +137,16 @@ def _fused_fas_k2(op, cfg: MultigridConfig, u, b, ec, resnorm=False):
 
 
 def _coarsest(hier: Hierarchy, cfg: MultigridConfig, u, b):
+    """The coarsest level's solve, in a ``coarse`` span: the dense Newton
+    solve (``kind="newton"``) or Jacobi-Newton / Picard sweeps
+    (``"smooth"``)."""
     op = hier.levels[-1]
     if cfg.coarse_solver == "direct" and getattr(op, "a_dense",
                                                  None) is not None:
-        return op.coarse_newton(u, b, steps=3)
-    return _nsmooth(op, u, b, cfg, cfg.coarse_smooth_sweeps)
+        with tracing.span("coarse", u, kind="newton"):
+            return op.coarse_newton(u, b, steps=3)
+    with tracing.span("coarse", u, kind="smooth"):
+        return _nsmooth(op, u, b, cfg, cfg.coarse_smooth_sweeps)
 
 
 def fas_cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
@@ -192,16 +203,19 @@ def fas_solve_fixed(hier: Hierarchy, cfg: MultigridConfig, b,
                     num_cycles: int, u0=None) -> SolveResult:
     """Run exactly ``num_cycles`` FAS cycles, recording the nonlinear
     residual norms."""
-    op = hier.levels[0]
-    u = u0 if u0 is not None else b.new_zeros(_gshape(op))
-    hist = torch.full((num_cycles + 1,), float("nan"), dtype=torch.float32,
-                      device=b.device)
-    hist[0] = ops.norm2(op.residual(u, b))
-    for i in range(num_cycles):
-        u, rnorm = fas_cycle_with_norm(hier, cfg, u, b)
-        hist[i + 1] = rnorm
-    return SolveResult(u=u, res_history=hist.cpu(), iterations=num_cycles,
-                       converged=True)
+    with tracing.solve() as root:
+        op = hier.levels[0]
+        u = u0 if u0 is not None else b.new_zeros(_gshape(op))
+        hist = torch.full((num_cycles + 1,), float("nan"),
+                          dtype=torch.float32, device=b.device)
+        hist[0] = ops.norm2(op.residual(u, b))
+        for i in range(num_cycles):
+            with tracing.span("cycle", b):
+                u, rnorm = fas_cycle_with_norm(hier, cfg, u, b)
+            hist[i + 1] = rnorm
+        root.set(iterations=num_cycles)
+        return SolveResult(u=u, res_history=tracing.sync(hist, "history"),
+                           iterations=num_cycles, converged=True)
 
 
 def fas_solve_until_tol(hier: Hierarchy, cfg: MultigridConfig, b, *,
@@ -212,35 +226,42 @@ def fas_solve_until_tol(hier: Hierarchy, cfg: MultigridConfig, b, *,
     (relative to the initial one by default), stalls (two consecutive
     cycles each reducing it by less than ``stall_factor``), or
     ``max_cycles`` is hit."""
-    op = hier.levels[0]
-    u = u0 if u0 is not None else b.new_zeros(_gshape(op))
-    r0 = np.float32(ops.norm2(op.residual(u, b)).item())
-    target = np.float32(tol) * r0 if relative else np.float32(tol)
-    target = max(target, np.float32(0.0))
-    sf = np.float32(stall_factor)
-    hist = np.full((max_cycles + 1,), np.nan, np.float32)
-    hist[0] = r0
-    i, rnorm, stalls = 0, r0, 0
-    while i < max_cycles and rnorm > target and stalls < 2:
-        u, rnew_t = fas_cycle_with_norm(hier, cfg, u, b)
-        rnew = np.float32(rnew_t.item())
-        hist[i + 1] = rnew
-        stalls = stalls + 1 if rnew > sf * rnorm else 0
-        rnorm = rnew
-        i += 1
-    return SolveResult(u=u, res_history=torch.from_numpy(hist), iterations=i,
-                       converged=bool(rnorm <= target))
+    with tracing.solve() as root:
+        op = hier.levels[0]
+        u = u0 if u0 is not None else b.new_zeros(_gshape(op))
+        r0 = np.float32(tracing.sync(ops.norm2(op.residual(u, b)), "norm"))
+        target = np.float32(tol) * r0 if relative else np.float32(tol)
+        target = max(target, np.float32(0.0))
+        sf = np.float32(stall_factor)
+        hist = np.full((max_cycles + 1,), np.nan, np.float32)
+        hist[0] = r0
+        i, rnorm, stalls = 0, r0, 0
+        while i < max_cycles and rnorm > target and stalls < 2:
+            with tracing.span("cycle", b):
+                u, rnew_t = fas_cycle_with_norm(hier, cfg, u, b)
+            rnew = np.float32(tracing.sync(rnew_t, "norm"))
+            hist[i + 1] = rnew
+            stalls = stalls + 1 if rnew > sf * rnorm else 0
+            rnorm = rnew
+            i += 1
+        root.set(iterations=i)
+        return SolveResult(u=u, res_history=torch.from_numpy(hist),
+                           iterations=i, converged=bool(rnorm <= target))
 
 
 def fmg_fas(hier: Hierarchy, cfg: MultigridConfig, b_levels):
     """FMG-FAS (nested iteration): the coarsest nonlinear solve, then per
     level prolong the solution and run ``cfg.nu0`` FAS cycles against that
-    level's own assembled right-hand side (``problem.rhs_all_levels()``)."""
+    level's own assembled right-hand side (``problem.rhs_all_levels()``).
+    A ``solve`` root (``iterations``: the FAS cycles run) when called
+    outside another driver's, and an ``fmg`` span."""
     kc = hier.num_levels - 1
-    u = b_levels[0].new_zeros(_gshape(hier.levels[kc]))
-    u = _coarsest(hier, cfg, u, b_levels[kc])
-    for k in range(kc - 1, -1, -1):
-        u = _prolong_err(u, hier.levels[k + 1], hier.levels[k])
-        for _ in range(cfg.nu0):
-            u = fas_cycle(hier, cfg, u, b_levels[k], k)
-    return u
+    with tracing.solve() as root, tracing.span("fmg", b_levels[0]):
+        u = b_levels[0].new_zeros(_gshape(hier.levels[kc]))
+        u = _coarsest(hier, cfg, u, b_levels[kc])
+        for k in range(kc - 1, -1, -1):
+            u = _prolong_err(u, hier.levels[k + 1], hier.levels[k])
+            for _ in range(cfg.nu0):
+                u = fas_cycle(hier, cfg, u, b_levels[k], k)
+        root.set(iterations=kc * cfg.nu0)
+        return u

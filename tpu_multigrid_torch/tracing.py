@@ -19,23 +19,32 @@ and read as device work.
 The span sites:
 
 * ``solve``: the root of each call of ``precision.solve_refined_ds``,
-  ``solve_refined_ts``, ``cycles.solve_fixed`` and ``solve_until_tol``
-  (a driver called inside another's root opens none); attributes
-  ``iterations`` and ``syncs``, the syncs counted over it;
-* ``cycle``: each finest-level cycle a driver runs;
+  ``solve_refined_ts``, ``cycles.solve_fixed``, ``solve_until_tol``,
+  ``cycles.fas.fas_solve_fixed``, ``fas_solve_until_tol`` and
+  ``fmg_fas``, and of each front door's solve (``api``: an FMG start
+  and the driver after it are one request); a driver called inside
+  another's root opens none; attributes ``iterations`` and ``syncs``, the
+  syncs counted over it;
+* ``cycle``: each finest-level cycle a driver runs (the FAS drivers'
+  ``fas_cycle_with_norm`` too);
 * ``accumulate``: each compensated add, ``precision.ds_add`` / ``ts_add``
   (attribute ``kind``);
 * ``residual``: each compensated residual (attribute ``path``: ``kernel``
   or ``plain``; ``var3`` for the 3D flux stencil's float64 one);
+* ``coarse``: each coarsest-level solve of the FAS tier,
+  ``cycles.fas._coarsest`` (attribute ``kind``: ``newton``, the dense
+  Newton solve, or ``smooth``);
+* ``fmg``: each full-multigrid pass, ``cycles.fmg`` (no root of its own:
+  it starts another driver) and ``cycles.fas.fmg_fas``;
 * ``sync``: each blocking read, through :func:`sync` (attribute ``what``).
 
-``cycle``, ``accumulate`` and ``residual`` on CUDA tensors also record a
-CUDA event on the current stream at each edge, which gives the span's
-device time, ``device_ms``.  The drivers synchronise at every ``sync``, so
-the events of the spans closed before one ``sync`` are complete by the
-next: that one reads their times and frees the events for reuse, before
-its own blocking read.  The rest are read by :func:`spans`, after the
-caller has synchronised.
+``cycle``, ``accumulate``, ``residual``, ``coarse`` and ``fmg`` on CUDA
+tensors also record a CUDA event on the current stream at each edge, which
+gives the span's device time, ``device_ms``.  The drivers synchronise at
+every ``sync``, so the events of the spans closed before one ``sync`` are
+complete by the next: that one reads their times and frees the events for
+reuse, before its own blocking read.  The rest are read by
+:func:`spans`, after the caller has synchronised.
 
 Recording costs the host time a solve's critical path may feel: the
 records are kept as plain values in flat lists (which the garbage
