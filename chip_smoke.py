@@ -166,7 +166,11 @@ Phases, each printing its own lines:
    4864), the 3D extended-block kernels at (576, 576, 640), the others at
    16640),
    with CUDA events (median of 7 after warm-up), and the one PyTorch call
-   that computes the same function where there is one.
+   that computes the same function where there is one; the refinement
+   loop's iterate update (a ds pair plus one addend on comp_add_ext, as
+   precision._accumulate runs it) at S = 8448 and (528, 528, 640),
+   bitwise against the plain ds_add chain and timed beside it with its
+   byte bound.
 
 Every path of phase 4 is driven with all launch counts set to 0 just
 before it and read just after.  Then one JSON line of kernel records, with
@@ -574,7 +578,7 @@ def phase_slice():
     check(tuple(res.u.shape) == (S, S) and bool(torch.isfinite(u).all()),
           "solution shape/finiteness")
     want1 = expect(smooth_restrict=nl * it, prolong_smooth=nl * it,
-                   ds_residual=it)
+                   ds_residual=it, comp_add_ext=it)
     check(c1 == want1, f"refined-solve launches {c1}, expected {want1}")
     want2 = expect(smooth_restrict=3 * nl, prolong_smooth=3 * (nl - 1),
                    prolong_smooth_resnorm=3)
@@ -689,6 +693,7 @@ def phase_record():
     want = expect(jacobi_sweeps_residual=ds * it, jacobi_sweeps=ds * it,
                   restrict_fw=ds * it, prolong_comp=ds * it,
                   prolong_add=ds * it, ds_residual=ds * it, ts_residual=it,
+                  comp_add_ext=(1 + 2 * ds) * it,
                   smooth_restrict=(nl - 1 - ds) * it,
                   prolong_smooth=(nl - 1 - ds) * it)
     got = PATH_COUNTS["record-14"]
@@ -728,7 +733,8 @@ def phase_fmg():
     cycle_pairs = nl * (nl + 1) // 2      # one V-cycle from each finer level
     want = expect(restrict_fw=nl, prolong_add=nl,
                   smooth_restrict=cycle_pairs + nl * it,
-                  prolong_smooth=cycle_pairs + nl * it, ds_residual=it + 1)
+                  prolong_smooth=cycle_pairs + nl * it, ds_residual=it + 1,
+                  comp_add_ext=it)
     got = PATH_COUNTS["fmg-13"]
     check(res.converged, f"FMG + refined solve: converged={res.converged}")
     check(got == want, f"FMG launches {got}, expected {want}")
@@ -1286,7 +1292,8 @@ def phase_slice3d():
     out, secs, peak, rel = drive("refined3d-9", lambda: run_refined3(True))
     it = out[3]
     got = PATH_COUNTS["refined3d-9"]
-    want = dict(counts3(it, resnorm=False), ds_residual3=it)
+    want = dict(counts3(it, resnorm=False), ds_residual3=it,
+                comp_add_ext=it)
     check(got == want, f"refined 3D launches {got}, expected {want}")
     summary = {"iterations": it, "seconds": secs, "peak_gib": peak / 2 ** 30,
                "f64_rel_residual": rel}
@@ -1381,7 +1388,7 @@ def phase_slice3d():
                                                                 1e-10))
     got = PATH_COUNTS["refined3d-5"]
     want = dict(counts3(out5[3], fused=0, unfused=2, resnorm=False),
-                ds_residual3=out5[3])
+                ds_residual3=out5[3], comp_add_ext=out5[3])
     check(got == want, f"refined level-5 launches {got}, expected {want}")
     m = 31
     one = sp.identity(m)
@@ -3279,13 +3286,47 @@ def dist_work(R, C, origin, n, steps):
         "comp_add_ext": (4 * (3 + 2 + 3) * cells, 2 * TS_ADD * cells)}
 
 
+def comp_add_times(card, times, shape, gen, name):
+    """The refinement loop's iterate update at ``shape``: a ds pair plus
+    one addend through ``precision._accumulate`` on the kernel (one
+    comp_add_ext launch, in place), bitwise against the plain ds_add chain,
+    then timed beside the chain against its byte bound: hi, lo and y read
+    once, hi and lo written once (5 passes)."""
+    from tpu_multigrid_torch import precision
+    from tpu_multigrid_torch.kernels import localref as KR
+    hi = torch.randn(shape, generator=gen, device=DEVICE)
+    lo = 1e-8 * torch.randn(shape, generator=gen, device=DEVICE)
+    y = 1e-3 * torch.randn(shape, generator=gen, device=DEVICE)
+    want = [hi.clone(), lo.clone()]
+    precision._accumulate(want, (y,))
+    got = [hi, lo]
+    before = KR.LAUNCHES["comp_add_ext"]
+    precision._accumulate(got, (y,), True)
+    check(KR.LAUNCHES["comp_add_ext"] == before + 1 and got[0] is hi,
+          f"{name}: not one in-place comp_add_ext launch")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{name}: comp_add_ext differs from the ds_add chain at {shape}")
+    del want
+    k = cuda_ms(lambda: KR.comp_add_ext((hi, lo), (y,)), reps=21)
+    p = cuda_ms(lambda: precision.ds_add(hi, lo, y))
+    times[name] = (k, p)
+    bms, by = bound(5 * 4 * hi.numel(), DS_ADD * hi.numel())
+    print(f"[times] {name:27s} {tuple(shape)}: kernel {k:.3f} ms "
+          f"({100 * bms / k:.1f} % of the bound), plain chain {p:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}), bitwise equal  ({card})")
+    del hi, lo, y, got
+    torch.cuda.empty_cache()
+
+
 def dist_times(card, times, work):
     """Each new kernel at the (1, 1) level-14 finest block beside its plain
     version: Jacobi 2 for K0-local, the ts triple with two addends for the
-    compensated add (the iterate's update).  No PyTorch call computes a
-    compensated residual, an exact-pair prolongation or a TwoSum add: no
-    library time."""
+    compensated add (the iterate's update, in place on copies of its own,
+    so that no copy is timed).  No PyTorch call computes a compensated
+    residual, an exact-pair prolongation or a TwoSum add: no library
+    time."""
     from tpu_multigrid_torch.kernels import local as KL
+    from tpu_multigrid_torch.kernels import localref as KR
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(43)
     R, C, n = DIST_BLOCKS[0]
@@ -3299,7 +3340,9 @@ def dist_times(card, times, work):
     cases = {k: v[0] for k, v in dist_cases(u, b, um, ul, ech, ecl, origin,
                                             n).items()
              if k != "residual_ext"}
-    cases["comp_add_ext"] = comp_add_case(3, 2, u, b, um, ul)
+    comps = [u.clone(), um.clone(), ul.clone()]
+    cases["comp_add_ext"] = (lambda: KR.comp_add_ext(comps, (b, um)),
+                             lambda: KR.comp_add_ext_plain(comps, (b, um)))
     work.update(dist_work(R, C, origin, n, 2))
     for name, (kern, plain) in cases.items():
         times[name] = (cuda_ms(kern), cuda_ms(plain))
@@ -3307,7 +3350,7 @@ def dist_times(card, times, work):
         bms, by = bound(*work[name])
         print(f"[times] {name:27s} ({R}, {C}): kernel {k:.3f} ms, plain "
               f"{p:.3f} ms, bound {bms:.3f} ms ({by})  ({card})")
-    del u, b, um, ul, ech, ecl, cases
+    del u, b, um, ul, ech, ecl, cases, comps
     torch.cuda.empty_cache()
 
 
@@ -4234,6 +4277,7 @@ def times3d(card, times, work):
           f"{times['ds_add3']:.3f} ms  ({card})")
     del u, b, ec, lo
     torch.cuda.empty_cache()
+    comp_add_times(card, times, shape, gen, "comp_add_ds3")
 
 
 # Float32 operations per node, counted from vartransfer3d.cu: the diagonal
@@ -4520,14 +4564,15 @@ def phase_times(card, prob_var, prob_var3, prob_aniso):
           f"{library['restrict_fw']:.3f} ms; F.conv_transpose2d stride 2 "
           f"(P ec alone) {ct_ms:.3f} ms  ({card})")
     del r4, e4
-    # The compensated adds of the refinement loop stay plain torch on both
-    # paths (cycle_ds runs ds_add twice per ds level, the ts loop ts_add
-    # twice per iteration).
+    # The compensated adds of the refinement loop as plain torch chains (the
+    # plain path's; cycle_ds runs ds_add twice per ds level, the ts loop
+    # ts_add twice per iteration), then the kernel route's comp_add_ext.
     for name, fn in (("ds_add", lambda: precision.ds_add(u, b, u)),
                      ("ts_add", lambda: precision.ts_add(u, b, b, u))):
         times[name] = cuda_ms(fn)
         print(f"[times] {name:23s} S={S}: plain torch only "
               f"{times[name]:.3f} ms  ({card})")
+    comp_add_times(card, times, (PAIRS[-1][0],) * 2, gen, "comp_add_ds")
     del u, b, ec, cases
     torch.cuda.empty_cache()
 

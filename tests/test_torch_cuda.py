@@ -1637,6 +1637,8 @@ def test_refined3d_residual_kernel_keeps_the_iterates(gen, monkeypatch,
         assert counts["ds_residual3"] == ds_levels * it
         assert counts["ts_residual3"] == it
     assert counts["ds_residual"] == counts["ts_residual"] == 0
+    # One compensated add an iteration, two a ds level, all on the kernel.
+    assert counts["comp_add_ext"] == (1 + 2 * ds_levels) * it
 
 
 def _hpgmg_beta(x, y, z):
@@ -1677,6 +1679,8 @@ def test_refined_var3d_matches_the_cpu(gen):
     assert counts["var_prolong_smooth3"] == it
     # One float64 flux-form residual an iteration, all on the kernel.
     assert counts["ds_residual_var3"] == it
+    # One compensated add an iteration, on the kernel.
+    assert counts["comp_add_ext"] == it
 
 
 # ---------------------------------------------------------------------------
@@ -1834,3 +1838,98 @@ def test_fmg_replays_its_captured_pass_bitwise(gen):
         hier, cfg, bs[2], tol=1e-7, u0=want[2])
     assert ok and iters == r_iters
     assert torch.equal(u_hi, r_hi) and torch.equal(u_lo, r_lo)
+
+
+# ---------------------------------------------------------------------------
+# The refinement loop's compensated accumulation: precision._accumulate on
+# comp_add_ext, in place, over any contiguous view
+# ---------------------------------------------------------------------------
+
+def _grids(layout, scales, gen):
+    """Float32 CUDA grids of ~N(0, 1) times each scale.  ``offset``: views
+    one float into a buffer of their own, so no pointer is 16-byte aligned;
+    ``odd``: an odd count, not a multiple of a block's 256 threads."""
+    shape = {"2d": (256, 768), "3d": (48, 48, 128), "odd": (37, 41, 43),
+             "offset": (255, 257)}[layout]
+    out = []
+    for s in scales:
+        if layout == "offset":
+            n = shape[0] * shape[1]
+            buf = torch.randn(n + 1, generator=gen, device="cuda")
+            out.append(buf[1:].mul_(s).view(shape))
+        else:
+            out.append(s * torch.randn(shape, generator=gen, device="cuda"))
+    return out
+
+
+@pytest.mark.parametrize("layout", ["2d", "3d", "odd", "offset"])
+@pytest.mark.parametrize("nparts", [2, 3])
+@pytest.mark.parametrize("nys", [1, 2])
+def test_accumulate_kernel_route_matches_the_chain_bitwise(gen, layout,
+                                                           nparts, nys):
+    """One comp_add_ext launch in one ``accumulate`` span writes, over the
+    parts' own storage, the bits of the ds_add / ts_add chain."""
+    parts = _grids(layout, (1.0, 1e-8, 1e-16)[:nparts], gen)
+    ys = _grids(layout, (1e-3, 1e-9)[:nys], gen)
+    if layout == "odd":
+        assert parts[0].numel() % 4 == 3
+    if layout == "offset":
+        assert all(t.data_ptr() % 16 for t in parts + ys)
+    want = [p.clone() for p in parts]
+    precision._accumulate(want, ys)
+    got = list(parts)
+    kernels.reset_launch_counts()
+    precision._accumulate(got, ys, True)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "comp_add_ext": 1}
+    assert all(g is p for g, p in zip(got, parts))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("ndim,driver,ds_levels", [
+    (2, "ds", 0), (2, "ds", 2), (2, "ts", 2), (3, "ds", 0), (3, "ds", 2)])
+def test_refined_accumulation_on_the_kernel_keeps_the_iterates(
+        gen, monkeypatch, ndim, driver, ds_levels):
+    """A refined solve with every add on comp_add_ext against the same
+    solve with the adds on the plain chain: the same iterations and bits;
+    one launch an iteration plus two a ds level, none on the chain; a
+    caller's start (u0, u0_lo) is left as given."""
+    cfg = tmg.MultigridConfig(finest_level=10 if ndim == 2 else 6,
+                              coarsest_level=5 if ndim == 2 else 3,
+                              smoother="chebyshev", nu1=3, nu2=2,
+                              use_kernels=True)
+    prob = (tmg.PoissonProblem(cfg, device="cuda", align=256,
+                               min_pad_level=0) if ndim == 2 else
+            tmg.Poisson3DProblem(cfg, align=16, min_pad_level=0,
+                                 lane_align=128, device="cuda"))
+    b = prob.rhs()
+    if driver == "ds":
+        x, x_lo = precision.solve_refined_ds(prob.hierarchy, cfg, b,
+                                             num_cycles=1, tol=None)[:2]
+        keep = (x.clone(), x_lo.clone())
+
+    def solve():
+        if driver == "ds":
+            return precision.solve_refined_ds(
+                prob.hierarchy, cfg, b, tol=1e-7, max_iters=30, u0=x,
+                u0_lo=x_lo, ds_levels=ds_levels)
+        return precision.solve_refined_ts(prob.hierarchy, cfg, b, tol=1e-10,
+                                          max_iters=30, ds_levels=ds_levels)
+    kernels.reset_launch_counts()
+    ko = solve()
+    counts = kernels.launch_counts()
+    chain = precision._accumulate
+    monkeypatch.setattr(precision, "_accumulate",
+                        lambda parts, ys, use_kernels=False: chain(parts, ys))
+    kernels.reset_launch_counts()
+    po = solve()
+    assert kernels.launch_counts()["comp_add_ext"] == 0
+    it = ko[-2]
+    assert ko[-1] and po[-2] == it
+    assert counts["comp_add_ext"] == it * (1 + 2 * ds_levels)
+    for k, p in zip(ko[:-3], po[:-3]):
+        assert torch.equal(k, p)
+    torch.testing.assert_close(ko[-3], po[-3], rtol=0, atol=0,
+                               equal_nan=True)
+    if driver == "ds":
+        assert torch.equal(x, keep[0]) and torch.equal(x_lo, keep[1])

@@ -25,7 +25,7 @@ from tpu_multigrid import precision as jprecision
 
 import tpu_multigrid_torch as tmg
 from tpu_multigrid_torch import interop, kernels, precision
-from tpu_multigrid_torch.kernels import compres, stencil, transfer
+from tpu_multigrid_torch.kernels import compres, localref, stencil, transfer
 
 # One torch thread per test worker (see tests/test_torch_ops.py).
 torch.set_num_threads(1)
@@ -145,6 +145,68 @@ def test_ts_add_matches_jax_bitwise():
     got = precision.ts_add(*map(torch.tensor, comps))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("nparts", [2, 3])
+@pytest.mark.parametrize("nys", [1, 2])
+def test_accumulate_on_the_cpu_takes_the_plain_chain(monkeypatch, nparts,
+                                                      nys):
+    """_accumulate on CPU tensors, kernels on or off, runs ds_add / ts_add
+    and never reaches comp_add_ext, whose CPU version calls _accumulate:
+    the sums replace the list's entries and leave the old parts alone."""
+    def refuse(comps, ys):
+        raise AssertionError("comp_add_ext reached from CPU tensors")
+    monkeypatch.setattr(localref, "comp_add_ext", refuse)
+    rng = np.random.default_rng(nparts * 10 + nys)
+
+    def grids(scales):
+        return [torch.tensor(rng.standard_normal((33, 65)).astype(np.float32)
+                             * s) for s in scales]
+    parts = grids((1.0, 1e-7, 1e-14)[:nparts])
+    ys = grids((1e-3, 1e-9)[:nys])
+    add = precision.ds_add if nparts == 2 else precision.ts_add
+    want = list(parts)
+    for y in ys:
+        want = list(add(*want, y))
+    before = [p.clone() for p in parts]
+    for use_kernels in (True, False):
+        got = list(parts)
+        precision._accumulate(got, ys, use_kernels)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(p, q) for p, q in zip(parts, before))
+
+
+@pytest.mark.parametrize("ds_levels", [0, 2])
+def test_solve_refined_ds_leaves_the_callers_start_alone(monkeypatch,
+                                                         ds_levels):
+    """solve_refined_ds(u0=x, u0_lo=x_lo) leaves x and x_lo as given, also
+    when the accumulation writes its sums over the parts' storage, as
+    comp_add_ext does on the card (here its CPU version, patched in), and
+    the answer is the plain chain's, bit for bit."""
+    _, _, pt, ct = _pair(6, 3)
+    b = pt.rhs()
+    x, x_lo = precision.solve_refined_ds(pt.hierarchy, ct, b, num_cycles=1,
+                                         tol=None)[:2]
+    keep = (x.clone(), x_lo.clone())
+
+    def solve():
+        return precision.solve_refined_ds(pt.hierarchy, ct, b, num_cycles=2,
+                                          tol=None, u0=x, u0_lo=x_lo,
+                                          ds_levels=ds_levels)
+    want = solve()
+    chain = precision._accumulate
+
+    def in_place(parts, ys, use_kernels=False):
+        new = list(parts)
+        chain(new, ys)
+        for c, v in zip(parts, new):
+            c.copy_(v)
+    monkeypatch.setattr(precision, "_accumulate", in_place)
+    got = solve()
+    assert torch.equal(x, keep[0]) and torch.equal(x_lo, keep[1])
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert got[3:] == want[3:]
 
 
 def test_resume_from_a_jax_refinement_iterate():

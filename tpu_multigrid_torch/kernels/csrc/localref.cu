@@ -1,6 +1,7 @@
 // The compensated-refinement kernels on ghost-extended blocks, for Hopper
-// (sm_90a): the ds / ts residual, the exact-pair prolongation and the
-// compensated add of the distributed refinement (dist/refine_pallas.py).
+// (sm_90a): the ds / ts residual and the exact-pair prolongation of the
+// distributed refinement (dist/refine_pallas.py), and the compensated add
+// of every refinement loop on the card (precision._accumulate as well).
 //
 // Replaces the Pallas TPU kernels tpu_multigrid/kernels/localref.py::
 // _comp_residual_local, ::_prolong_pair_local and ::_comp_add_local.
@@ -36,6 +37,9 @@
 // from device memory about once and each output written once.  comp_add
 // writes its results over its inputs, so the ts triple of a 16385^2 block
 // needs no second copy.
+// One 4-byte load and store a thread a step, under a grid-stride loop, moves
+// 79-84 % of an H100's peak bytes for a ds pair plus one addend at the
+// refinement cells' grids: no wider access is needed to near the bound.
 //
 // Arithmetic: TwoSum is exact IEEE arithmetic, so every operation goes
 // through __fadd_rn/__fsub_rn/__fmul_rn (twosum.cuh, compsum.cuh) or plain

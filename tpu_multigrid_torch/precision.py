@@ -38,7 +38,7 @@ from .core.grids import Hierarchy
 from .core.operators import ConstStencilOp, ConstStencilOp3D, VarStencilOp3D
 from .cycles import (SolveResult, _coarsest_solve, _ndim, _restrict, _smooth,
                      _smooth_residual, _tshape, _zeros, cycle)
-from .kernels import compres
+from .kernels import compres, localref
 from .kernels import transfer as _t
 
 
@@ -356,10 +356,12 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
         p_hi, p_err = prolong_comp(ec_hi, opc.n, op.S)
         p_lo = ops.prolong(ec_lo, opc.n, op.S) + p_err
     # accumulate (p_hi, p_lo) + e0 exactly, then post-smooth in delta form
-    e_hi, e_lo = ds_add(p_hi, p_lo, e0)
-    d0 = _comp_residual(r, (e_hi, e_lo), op, cfg.use_kernels)
+    e = [p_hi, p_lo]
+    _accumulate(e, (e0,), cfg.use_kernels)
+    d0 = _comp_residual(r, e, op, cfg.use_kernels)
     delta = _smooth(op, torch.zeros_like(d0), d0, cfg, cfg.nu2)
-    return ds_add(e_hi, e_lo, delta)
+    _accumulate(e, (delta,), cfg.use_kernels)
+    return tuple(e)
 
 
 def ts_add(hi, mid, lo, y):
@@ -417,11 +419,21 @@ def _check_modes(tol, num_cycles) -> None:
             "num_cycles (fixed-count mode); got tol=None, num_cycles=None")
 
 
-def _accumulate(parts: list, ys) -> None:
-    """parts += each y of ``ys`` in turn through :func:`ds_add` (a pair) or
-    :func:`ts_add` (a triple), each in its own ``accumulate`` span, in
-    place in the list ``parts`` (``kernels.localref.comp_add_ext``'s
-    contract), so that no earlier sum stays alive."""
+def _accumulate(parts: list, ys, use_kernels: bool = False) -> None:
+    """parts (a ds pair or ts triple) += each y of ``ys`` in turn, in the
+    list, so that no earlier sum stays alive.  With ``use_kernels`` on
+    float32 CUDA tensors, one ``kernels.localref.comp_add_ext`` launch in
+    one ``accumulate`` span writes the sums over the parts' own storage:
+    the caller must own them, and no y may share it.  Otherwise
+    :func:`ds_add` / :func:`ts_add` per y, with the same bits.  A CPU
+    tensor never takes the kernel route: ``comp_add_ext``'s CPU version
+    calls this function."""
+    hi = parts[0]
+    if use_kernels and hi.device.type == "cuda" and hi.dtype == torch.float32:
+        with tracing.span("accumulate", hi,
+                          kind="ds" if len(parts) == 2 else "ts"):
+            localref.comp_add_ext(parts, ys)
+        return
     add = ds_add if len(parts) == 2 else ts_add
     for y in ys:
         parts[:] = add(*parts, y)
@@ -446,9 +458,10 @@ def _refine(hier, cfg, b, nparts, ds_levels, tol, stall_factor, num_cycles,
         if u0 is None:
             parts, r = [_zeros(op, b) for _ in range(nparts)], b
         else:
-            parts = [u0.to(b.dtype)]
+            # Copies: the parts are overwritten in place on the card.
+            parts = [u0.to(b.dtype, copy=True)]
             parts.append(torch.zeros_like(parts[0]) if u0_lo is None
-                         else u0_lo.to(b.dtype))
+                         else u0_lo.to(b.dtype, copy=True))
             r = _comp_residual(b, parts, op, cfg.use_kernels)
         loop = _RefinementLoop(tracing.sync(ops.norm2(r), "norm"), tol,
                                stall_factor, num_cycles, max_iters, r0_norm)
@@ -457,7 +470,7 @@ def _refine(hier, cfg, b, nparts, ds_levels, tol, stall_factor, num_cycles,
                 e = (cycle_ds(hier, cfg, r, ds_levels=ds_levels)
                      if ds_levels > 0
                      else (cycle(hier, cfg, torch.zeros_like(r), r),))
-            _accumulate(parts, e)
+            _accumulate(parts, e, cfg.use_kernels)
             r = _comp_residual(b, parts, op, cfg.use_kernels)
             loop.record(tracing.sync(ops.norm2(r), "norm"))
         root.set(iterations=loop.i)

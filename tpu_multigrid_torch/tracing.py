@@ -27,8 +27,10 @@ The span sites:
   syncs counted over it;
 * ``cycle``: each finest-level cycle a driver runs (the FAS drivers'
   ``fas_cycle_with_norm`` too);
-* ``accumulate``: each compensated add, ``precision.ds_add`` / ``ts_add``
-  (attribute ``kind``);
+* ``accumulate``: each compensated add (attribute ``kind``: ``ds`` or
+  ``ts``): on the card with kernels, each ``precision._accumulate`` call,
+  one ``kernels.localref.comp_add_ext`` launch over all its addends;
+  otherwise each ``precision.ds_add`` / ``ts_add``;
 * ``residual``: each compensated residual (attribute ``path``: ``kernel``
   or ``plain``; ``var3`` for the 3D flux stencil's float64 one);
 * ``coarse``: each coarsest-level solve of the FAS tier,
